@@ -4,11 +4,17 @@
 
 Builds the port's CUDA kernels from `spotify_recommender_tpu_torch/csrc`,
 holds each against its plain torch version on the card, runs the
-reference-style CLI on a 114,000-row catalog, and drives the main path
-(`Retriever.retrieve`, certified exact tier) at the benchmark's size:
-1,000,000 x 12 items, B = 1024 catalog-row queries with self-exclusion,
-k = 10.  Every phase prints one line; any failure raises and exits
-non-zero.  The next-to-last line is a JSON object of the kernels (launches
+reference-style CLI on a 114,000-row catalog, and drives the main paths
+at the benchmark's sizes:
+
+- phase 6: `Retriever.retrieve` (certified exact tier), 1,000,000 x 12
+  items, B = 1024 catalog-row queries with self-exclusion, k = 10;
+- phase 7: the fused score + top-k kernel at those shapes, both modes;
+- phase 8: the Retriever's "pallas" backend and an exact `FusedRetriever`;
+- phase 9: `StreamingRetriever` over a memory-mapped 4,000,000 x 12
+  catalog directory, B = 256, window 1,048,576, and `retrieve --streaming`.
+
+Every phase prints one line; any failure raises and exits non-zero.  The next-to-last line is a JSON object of the kernels (launches
 on the main path, error against the plain version, times); the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
@@ -29,6 +35,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -45,6 +52,10 @@ from spotify_recommender_tpu_torch.core.device import (  # noqa: E402
 from spotify_recommender_tpu_torch.data.catalog import Catalog  # noqa: E402
 from spotify_recommender_tpu_torch.ops import similarity  # noqa: E402
 from spotify_recommender_tpu_torch.ops.cuda import _build  # noqa: E402
+from spotify_recommender_tpu_torch.ops.cuda.fused import (  # noqa: E402
+    fused_topk,
+    fused_topk_plain,
+)
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (  # noqa: E402
     scan_v3,
     scan_v3_plain,
@@ -55,15 +66,25 @@ from spotify_recommender_tpu_torch.ops.cuda.split import (  # noqa: E402
 )
 from spotify_recommender_tpu_torch.ops.fused_topk import (  # noqa: E402
     BF16X2_EPS,
+    FusedRetriever,
     build_certified_layout,
     layout_to_device,
+    prepare_and_call,
 )
 from spotify_recommender_tpu_torch.retrieval.retriever import (  # noqa: E402
     Retriever,
 )
+from spotify_recommender_tpu_torch.retrieval.streaming_retriever import (  # noqa: E402
+    StreamingRetriever,
+    host_tensor,
+)
 
 DEV = torch.device("cuda:0")
 TOL = 1e-6   # kernel vs plain: values and bounds (same fp32 products)
+# against the oracle (cuBLAS product, other summation order): exact-mode
+# scores within 1e-6; prenormalized scores round the unit rows and queries
+# once more each, so within 1e-5
+TOL_EXACT, TOL_FAST = 1e-6, 1e-5
 PALLAS = "spotify_recommender_tpu/ops/pallas/fused_topk.py"
 
 
@@ -85,6 +106,12 @@ def sync_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _host_ms(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def wall_ms(fn, reps: int) -> float:
@@ -124,6 +151,36 @@ def compare_scan(q2, ft, depth, topc):
     check(torch.equal(ki[sep], pi[sep]), f"scan depth {depth}: indices differ")
     bitwise = torch.equal(kv, pv) and torch.equal(ki, pi) and torch.equal(kb, pb)
     return err, bitwise, (kv, ki, kb)
+
+
+def compare_oracle(s, i, rs, ri, tol: float, what: str) -> Tuple[float, int]:
+    """Scores within `tol` of the oracle's; indices equal at every position
+    whose oracle neighbours are more than 2 * tol away (the oracle's
+    cuBLAS product sums in another order, so closer values may swap).
+    Returns (max score error, positions that differ at near-ties)."""
+    check(s.shape == rs.shape and bool(torch.isfinite(s).all()),
+          f"{what}: shape {tuple(s.shape)} or non-finite scores")
+    err = (s - rs).abs().max().item()
+    check(err <= tol, f"{what}: scores differ from the oracle's by {err}")
+    gaps = (rs[:, :-1] - rs[:, 1:]) > 2 * tol
+    ones = torch.ones_like(gaps[:, :1])
+    sep = torch.cat([ones, gaps], 1) & torch.cat([gaps, ones], 1)
+    sep[:, -1] = False      # the (k+1)-th oracle value is unknown
+    check(torch.equal(i[sep], ri[sep]),
+          f"{what}: {(i[sep] != ri[sep]).sum().item()} separated indices differ")
+    return err, int((i != ri).sum().item())
+
+
+def compare_fused(args, k, exact, what):
+    """Kernel 3 vs its plain version on the same inputs: bitwise."""
+    kv, ki = fused_topk(*args, k=k, exact=exact)
+    pv, pi = fused_topk_plain(*args, k=k, exact=exact)
+    torch.cuda.synchronize()
+    err = (kv - pv).nan_to_num(posinf=0.0, neginf=0.0).abs().max().item()
+    check(torch.equal(kv, pv) and torch.equal(ki, pi),
+          f"{what}: kernel differs from plain in {(ki != pi).sum().item()} "
+          f"indices, max value diff {err}")
+    return kv, ki, err
 
 
 def make_songs_csv(path: Path, n_rows: int, n_genres: int, seed: int) -> None:
@@ -339,6 +396,142 @@ def main() -> None:
           f"({b} x {ft.shape[1]}) {kernels['scan_v3']['ms']:.3f} ms vs plain "
           f"{kernels['scan_v3']['plain_ms']:.3f} ms (bitwise {bit2}); escalation "
           f"shape depth 3 (32 queries) bitwise {bit3}")
+
+    # ---- 7. kernel 3 at the main path's shapes, both modes
+    unit = feats / np.maximum(norms, 1e-30)[:, None]      # FusedRetriever's
+    modes = {
+        True: (queries, f_dev.t().contiguous(), TOL_EXACT),
+        False: (qunit, torch.from_numpy(np.ascontiguousarray(unit.T)).to(DEV),
+                TOL_FAST),
+    }
+    line, fused_err, fused_times = [], 0.0, {}
+    for exact, (qq, ft3, tol) in modes.items():
+        args = (qq, qn, ft3, n_dev, excl, n)
+        kv, ki, err = compare_fused(args, k, exact, f"fused exact={exact}")
+        fused_err = max(fused_err, err)
+        oerr, ties = compare_oracle(kv, ki, rs, ri, tol, f"fused exact={exact}")
+        t_k = sync_ms(lambda: fused_topk(*args, k=k, exact=exact), 20)
+        t_p = sync_ms(lambda: fused_topk_plain(*args, k=k, exact=exact), 3)
+        t_1 = sync_ms(lambda: fused_topk(qq[:1], qn[:1], ft3, n_dev, excl[:1],
+                                         n, k=k, exact=exact), 50)
+        fused_times[exact] = (t_k, t_p)
+        line.append(
+            f"exact={exact}: bitwise equal to plain; vs oracle max score diff "
+            f"{oerr:.3g}, {ties} near-tie positions differ; kernel {t_k:.3f} "
+            f"ms vs plain {t_p:.3f} ms; B=1 kernel {t_1:.4f} ms")
+    args = (queries, qn, modes[True][1], n_dev, excl, n)
+    kv, ki, err = compare_fused(args, 100, True, "fused k=100")
+    rs100, ri100 = similarity.exact_topk_chunked(queries, f_dev, n_dev,
+                                                 exclude_rows=excl, k=100)
+    oerr100, ties100 = compare_oracle(kv, ki, rs100, ri100, TOL_EXACT, "k=100")
+    small = (queries, qn, modes[True][1][:, :64], n_dev[:64], excl, 5)
+    kv, ki, err2 = compare_fused(small, k, True, "fused, 5 valid columns")
+    check(bool(((ki == -1).sum(dim=1) >= k - 5).all())
+          and torch.equal(ki == -1, kv == float("-inf")),
+          "unfilled slots are not (-inf, -1)")
+    fused_err = max(fused_err, err, err2)
+    print(f"phase 7 fused kernel: N={n} B={b} k={k}; " + "; ".join(line)
+          + f"; k=100 bitwise equal to plain, vs oracle {oerr100:.3g} "
+          f"({ties100} near-tie diffs); 5 valid columns, k={k}: bitwise "
+          "equal, unfilled slots (-inf, -1)")
+
+    # ---- 8. the "pallas" backend and an exact FusedRetriever
+    rp = Retriever(cat, RetrievalConfig(exact_scores=False), DEV)
+    check(rp.backend == "pallas", f"backend {rp.backend}")
+    fr = FusedRetriever(feats, norms, None, DEV)
+    line, fused_launches = [], 0
+    for what, fn, tol in (
+        ("pallas backend", rp.retrieve, TOL_FAST),
+        ("exact FusedRetriever", fr, TOL_EXACT),
+    ):
+        fused_topk.launches = 0
+        s8, i8 = fn(queries, k=k, exclude_rows=excl)
+        torch.cuda.synchronize()
+        launched = fused_topk.launches
+        check(launched > 0, f"{what}: the fused kernel did not launch")
+        fused_launches += launched
+        oerr, ties = compare_oracle(s8, i8, rs, ri, tol, what)
+        t_b = wall_ms(lambda: fn(queries, k=k, exclude_rows=excl), 20)
+        t_1 = wall_ms(lambda: fn(q1, k=k, exclude_rows=e1), 20)
+        line.append(
+            f"{what}: {launched} launch, vs oracle max score diff {oerr:.3g}, "
+            f"{ties} near-tie positions differ; batch {t_b:.3f} ms median of "
+            f"20 ({b / t_b * 1e3:.0f} q/s); B=1 {t_1:.3f} ms")
+    print(f"phase 8 fused retrievers: N={n} B={b} k={k}; " + "; ".join(line))
+    del rp, fr, retriever, cr, modes, f_dev
+
+    # ---- 9. the streaming tier at the JAX benchmark's shape
+    n9, b9, w9 = 4_000_000, 256, 1 << 20        # benchmark.py:401-404
+    rng9 = np.random.default_rng(0)
+    feats9 = rng9.random((n9, 12), dtype=np.float32)
+    q9 = feats9[rng9.integers(0, n9, b9)]
+    ids9 = np.arange(n9).astype("U7")
+    with tempfile.TemporaryDirectory() as tmp:
+        cdir = str(Path(tmp) / "catalog")
+        t0 = time.perf_counter()
+        Catalog(feats9, None, ids9, ids9, ids9, np.zeros(n9, np.int32), ["g"],
+                np.zeros(11, np.float32), np.ones(11, np.float32)).save_dir(cdir)
+        cat9 = Catalog.load_dir(cdir)
+        t_save = time.perf_counter() - t0
+        check(isinstance(cat9.features, np.memmap), "features are not memory-mapped")
+        sr = StreamingRetriever(cat9.features, cat9.norms, None, DEV, window=w9)
+        fused_topk.launches = 0
+        s9, i9 = sr(q9, k)
+        torch.cuda.synchronize()
+        launched = fused_topk.launches
+        check(launched > 0, "streaming: the fused kernel did not launch")
+        fused_launches += launched
+        q9d = torch.from_numpy(q9).to(DEV)
+        f9 = torch.from_numpy(feats9).to(DEV)
+        r9s, r9i = similarity.exact_topk_chunked(
+            q9d, f9, torch.from_numpy(np.asarray(cat9.norms)).to(DEV), k=k)
+        oerr9, ties9 = compare_oracle(s9, i9, r9s, r9i, TOL_EXACT, "streaming")
+        t_s = wall_ms(lambda: sr(q9, k), 5)
+        gbps = n9 * 12 * 4 / t_s / 1e6
+        # the parts of one window: host copy out of the memmap, bare pinned
+        # upload, kernel at B = 256
+        pinned = torch.empty((w9, 12), pin_memory=True)
+        t_host = statistics.median(
+            _host_ms(lambda: pinned.copy_(host_tensor(cat9.features[:w9])))
+            for _ in range(5))
+        rows_d = torch.empty((w9, 12), device=DEV)
+        t_h2d = sync_ms(lambda: rows_d.copy_(pinned, non_blocking=True), 10)
+        link = w9 * 12 * 4 / t_h2d / 1e6
+        none9 = torch.full((b9,), -1, dtype=torch.int64, device=DEV)
+        win_norms = similarity.row_norms(f9[:w9])
+        t_win = sync_ms(lambda: prepare_and_call(
+            q9d, none9, f9[:w9].t(), win_norms, w9, k=k, eps=1e-8,
+            exact=True), 10)
+        # the alternative layout: transpose the window on the device first
+        win_t = f9[:w9].t().contiguous()
+        t_tr = sync_ms(lambda: f9[:w9].t().contiguous(), 10)
+        t_win_t = sync_ms(lambda: prepare_and_call(
+            q9d, none9, win_t, win_norms, w9, k=k, eps=1e-8, exact=True), 10)
+        del f9, win_t
+        qpath, opath = Path(tmp) / "q.npy", Path(tmp) / "out.npz"
+        np.save(qpath, q9)
+        run_cli(["--device", "cuda", "retrieve", str(qpath), "--catalog", cdir,
+                 "--streaming", "-k", str(k), "-o", str(opath)])
+        with np.load(opath) as z:
+            check(np.array_equal(z["rows"], i9.cpu().numpy()),
+                  "retrieve --streaming rows differ from the library call's")
+    print(f"phase 9 streaming: N={n9} memmap dir (written and loaded in "
+          f"{t_save:.1f} s) B={b9} window {w9} k={k}: {launched} launches, vs "
+          f"oracle max score diff {oerr9:.3g}, {ties9} near-tie positions "
+          f"differ; batch {t_s:.3f} ms median of 5 ({gbps:.3f} GB/s streamed); "
+          f"one window: host copy {t_host:.3f} ms, bare pinned H2D {t_h2d:.3f} "
+          f"ms ({link:.3f} GB/s), kernel at B={b9} {t_win:.3f} ms on the "
+          f"row-major window (a transposed copy: {t_win_t:.3f} ms + "
+          f"{t_tr:.3f} ms to transpose); "
+          f"streaming_link_efficiency {gbps / link:.3f}; retrieve --streaming "
+          "rows equal the library call's")
+
+    kernels["fused_topk"] = dict(
+        source="spotify_recommender_tpu_torch/csrc/fused_topk.cu",
+        replaces=f"{PALLAS}:52", max_abs_err=fused_err,
+        ms=fused_times[True][0], plain_ms=fused_times[True][1],
+    )
+    launches["fused_topk"] = fused_launches
 
     print(nvidia_smi("name,power.limit").splitlines()[0])
     print(json.dumps({"kernels": [

@@ -2,18 +2,19 @@
 spotify_recommender_tpu.
 
 The JAX package beside it is the reference this port is held against.
-This package imports torch and numpy, never jax.  Its certified exact
-retrieval path runs two hand-written CUDA kernels for Hopper (sm_90a)
-on a CUDA device, and their plain torch versions on the CPU.
+This package imports torch and numpy, never jax.  Its retrieval tiers
+(certified exact, fused exact/prenormalized, host streaming) run three
+hand-written CUDA kernels for Hopper (sm_90a) on a CUDA device, and
+their plain torch versions on the CPU.
 
 Layer map:
 
 - ``core``      — config dataclasses, device resolution, logging
 - ``data``      — feature schema, CSV ingest, normalization, catalog artifact
-- ``ops``       — torch oracle, top-k merges, the certified tier
+- ``ops``       — torch oracle, top-k merges, the fused and certified tiers
     ``cuda``    — kernel wrappers and the nvcc build (sources in ``csrc/``)
-- ``retrieval`` — catalog index (id/name), Retriever API
-- ``cli``       — reference-style flags, `preprocess`, `recommend`
+- ``retrieval`` — catalog index (id/name), Retriever API, streaming tier
+- ``cli``       — reference-style flags, `preprocess`, `recommend`, `retrieve`
 """
 
 from spotify_recommender_tpu_torch.version import __version__

@@ -7,7 +7,9 @@ the JAX package's two calling styles:
     ``... --preprocess dataset.csv``
     ``... --song "Bohemian Rhapsody" -n 5``
     ``... --id "3ade68b8e" -n 10``
-- subcommands: ``preprocess`` (formats npz and bin) and ``recommend``.
+- subcommands: ``preprocess`` (formats npz and bin), ``recommend`` and
+  ``retrieve`` (batched query vectors -> top-k; ``--streaming`` streams a
+  memory-mapped catalog directory through the device in windows).
 
 A global ``--device`` flag (default ``cuda``) names the device retrieval
 runs on; ``--device cuda`` without a card raises.  The JAX package's other
@@ -39,7 +41,7 @@ BANNER = """\
 
 # subcommands of the JAX package that this package does not have yet
 NOT_PORTED = (
-    "retrieve", "benchmark", "autotune", "train-mf", "train-two-tower",
+    "benchmark", "autotune", "train-mf", "train-two-tower",
     "evaluate-mf", "recommend-user", "embed-catalog", "evaluate-two-tower",
     "serve",
 )
@@ -120,6 +122,65 @@ def cmd_recommend(
     return 0
 
 
+def cmd_retrieve(args, device: str) -> int:
+    """Batched retrieval from a query-vectors file (JAX cli.py:227-276).
+
+    A catalog directory is dispatched on its ``meta.json`` ``layout``:
+    ``dir-v1`` loads memory-mapped; the JAX package's sharded ``ocdbt-v1``
+    artifact is not ported.  (The JAX CLI sends every directory with a
+    ``meta.json`` to its sharded loader, which fails on ``dir-v1``.)"""
+    import json
+    import os
+
+    import numpy as np
+
+    from spotify_recommender_tpu_torch.data.catalog import read_dir_meta
+    from spotify_recommender_tpu_torch.retrieval.retriever import Retriever
+    from spotify_recommender_tpu_torch.retrieval.streaming_retriever import (
+        StreamingRetriever,
+    )
+
+    if args.mesh:
+        print("Error: --mesh (sharded catalog) is not ported yet "
+              "(see ROADMAP.md)", file=sys.stderr)
+        return 1
+    if os.path.isdir(args.catalog):
+        layout = read_dir_meta(args.catalog).get("layout")
+        if layout != "dir-v1":
+            print(f"Error: catalog layout {layout!r} is not ported yet "
+                  "(see ROADMAP.md)", file=sys.stderr)
+            return 1
+    if args.queries.endswith(".npy"):
+        queries = np.load(args.queries)
+    else:
+        with np.load(args.queries) as z:
+            queries = z["queries"]
+    cat = _load_catalog(args.catalog)
+    if args.streaming:
+        retriever = StreamingRetriever(cat.features, cat.norms, None, device)
+    else:
+        retriever = Retriever(cat, None, device)
+    scores, rows = retriever.retrieve(queries, k=args.k)
+    scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
+    if args.output:
+        np.savez_compressed(
+            args.output,
+            scores=scores,
+            rows=rows,
+            track_ids=np.asarray(cat.track_ids)[rows].astype(np.str_),
+        )
+        print(f"retrieved top-{args.k} for {len(queries)} queries -> {args.output}")
+    else:
+        for b in range(len(queries)):
+            print(json.dumps({
+                "query": b,
+                "rows": rows[b].tolist(),
+                "scores": [round(float(s), 6) for s in scores[b]],
+                "track_ids": [str(t) for t in np.asarray(cat.track_ids)[rows[b]]],
+            }))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="spotify_recommender_tpu_torch", description=__doc__
@@ -141,6 +202,25 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--id", dest="track_id", help="query by exact track id")
     sr.add_argument("-n", type=int, default=10)
     sr.add_argument("--catalog", default=DEFAULT_CATALOG)
+
+    sv = sub.add_parser(
+        "retrieve", help="batched retrieval: query vectors file -> top-k"
+    )
+    sv.add_argument(
+        "queries", help=".npz with a 'queries' (B, F) array, or .npy"
+    )
+    sv.add_argument("-k", type=int, default=10)
+    sv.add_argument("--catalog", default=DEFAULT_CATALOG,
+                    help=".npz, .bin, or a dir-v1 catalog directory "
+                         "(memory-mapped)")
+    sv.add_argument("-o", "--output", default=None,
+                    help="write results to .npz (default: print JSON)")
+    sv.add_argument("--mesh", default=None,
+                    help="device mesh of the JAX package (not ported: exits 1)")
+    sv.add_argument("--streaming", action="store_true",
+                    help="host-stream the catalog through the device in "
+                         "windows (capacity tier for catalogs beyond "
+                         "device memory; pair with a memmap catalog dir)")
     return p
 
 
@@ -216,6 +296,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_recommend(
             query, args.track_id is not None, args.n, args.catalog, device
         )
+    if args.command == "retrieve":
+        return cmd_retrieve(args, device)
     parser.print_help()
     return 1
 

@@ -8,9 +8,9 @@ move freely between the two packages:
 - versioned, endian-stable `.npz` container (format v1);
 - L2 norms precomputed once at build time (the reference re-computed
   catalog norms on every query, Recommender.cu:228-252);
+- the memory-mapped directory format ``dir-v1`` (one ``.npy`` per column
+  + ``meta.json``), which loads in O(1) of the catalog size;
 - readers/writers for the legacy ``songs_data.bin`` format.
-
-The memory-mapped directory format is not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -54,23 +54,38 @@ class Catalog:
     max_vals: np.ndarray      # (F-1,) fp32 per-feature max
 
     def __post_init__(self) -> None:
-        self.features = np.ascontiguousarray(self.features, dtype=np.float32)
+        f = self.features
+        if not (isinstance(f, np.ndarray) and f.dtype == np.float32
+                and f.flags["C_CONTIGUOUS"]):
+            # conformant arrays, read-only memmaps of the directory format
+            # among them, are kept as they are: no copy on load
+            self.features = np.ascontiguousarray(f, dtype=np.float32)
         if self.norms is None or len(self.norms) != len(self.features):
             self.norms = np.linalg.norm(self.features, axis=1).astype(np.float32)
 
     def __len__(self) -> int:
         return self.features.shape[0]
 
-    def validate(self) -> None:
-        """Fail-fast artifact validation: structural integrity on load."""
+    def validate(self, sample: Optional[int] = None) -> None:
+        """Fail-fast artifact validation: structural integrity on load.
+
+        With `sample`, the finite-values check reads only the first and
+        last `sample` rows, so a memory-mapped catalog is not paged in
+        whole on load."""
         n = len(self)
         problems = []
         for name in ("norms", "track_ids", "track_names", "artists", "genre_ids"):
             arr = getattr(self, name)
             if len(arr) != n:
                 problems.append(f"{name} has {len(arr)} entries, expected {n}")
-        if n and not np.isfinite(self.features).all():
-            problems.append("features contain non-finite values")
+        if n:
+            if sample is None or 2 * sample >= n:
+                finite = np.isfinite(self.features).all()
+            else:
+                finite = (np.isfinite(self.features[:sample]).all()
+                          and np.isfinite(self.features[-sample:]).all())
+            if not finite:
+                problems.append("features contain non-finite values")
         if n and self.genre_ids.size:
             gmax = int(self.genre_ids.max())
             if gmax >= len(self.genre_names):
@@ -111,20 +126,72 @@ class Catalog:
         )
         log.info("catalog saved: %s (%d items, %d genres)", path, len(self), self.num_genres)
 
+    # --------------------------------------------- directory (memmap) io
+
+    _DIR_ARRAYS = (
+        "features", "norms", "track_ids", "track_names", "artists",
+        "genre_ids", "min_vals", "max_vals",
+    )
+
+    def save_dir(self, path: str) -> None:
+        """Write the memory-mappable directory format ``dir-v1``: one
+        uncompressed ``.npy`` per column + ``meta.json``, the JAX package's
+        layout byte for byte, so each package reads the other's."""
+        os.makedirs(path, exist_ok=True)
+        arrays = {
+            "features": self.features,
+            "norms": self.norms,
+            "track_ids": np.asarray(self.track_ids, dtype=np.str_),
+            "track_names": np.asarray(self.track_names, dtype=np.str_),
+            "artists": np.asarray(self.artists, dtype=np.str_),
+            "genre_ids": self.genre_ids.astype(np.int32),
+            "min_vals": self.min_vals,
+            "max_vals": self.max_vals,
+        }
+        for name in self._DIR_ARRAYS:
+            np.save(os.path.join(path, f"{name}.npy"), arrays[name])
+        meta = {
+            "format_version": CATALOG_FORMAT_VERSION,
+            "layout": "dir-v1",
+            "feature_columns": list(FEATURE_COLUMNS) + ["genre"],
+            "num_items": len(self),
+            "num_genres": self.num_genres,
+            "genre_names": list(self.genre_names),
+        }
+        with open(os.path.join(path, "meta.json"), "w") as f:
+            json.dump(meta, f)
+        log.info("catalog saved (dir/memmap): %s (%d items, %d genres)",
+                 path, len(self), self.num_genres)
+
+    @classmethod
+    def load_dir(cls, path: str, mmap: bool = True) -> "Catalog":
+        """Load the directory format; with `mmap` (default) every array is
+        memory-mapped read-only and validation samples rows, so nothing is
+        read in bulk and catalogs larger than RAM load."""
+        meta = read_dir_meta(path)
+        if meta.get("layout") != "dir-v1":
+            raise ValueError(
+                f"{path}: layout {meta.get('layout')!r} is not a dir-v1 catalog"
+            )
+        _check_version(path, meta)
+        arrays = {
+            name: np.load(os.path.join(path, f"{name}.npy"),
+                          mmap_mode="r" if mmap else None, allow_pickle=False)
+            for name in cls._DIR_ARRAYS
+        }
+        cat = cls(genre_names=[str(g) for g in meta["genre_names"]], **arrays)
+        cat.validate(sample=4096 if mmap else None)
+        log.info("catalog loaded (dir%s): %s (%d items)",
+                 "/memmap" if mmap else "", path, len(cat))
+        return cat
+
     @classmethod
     def load(cls, path: str) -> "Catalog":
         if os.path.isdir(path):
-            raise NotImplementedError(
-                f"{path} is a catalog directory: the memory-mapped dir format "
-                "is not ported yet (ROADMAP queue 1, data layer)"
-            )
+            return cls.load_dir(path)
         with np.load(path, allow_pickle=False) as z:
             meta = json.loads(str(z["meta"]))
-            if meta["format_version"] > CATALOG_FORMAT_VERSION:
-                raise ValueError(
-                    f"catalog {path} has format v{meta['format_version']}, "
-                    f"this build reads <= v{CATALOG_FORMAT_VERSION}"
-                )
+            _check_version(path, meta)
             cat = cls(
                 features=z["features"],
                 norms=z["norms"],
@@ -218,6 +285,22 @@ class Catalog:
             buf.write(self.features[i].astype("<f4").tobytes())
         with open(path, "wb") as f:
             f.write(buf.getvalue())
+
+
+def read_dir_meta(path: str) -> dict:
+    """``meta.json`` of a catalog directory: ``layout`` is ``dir-v1`` for
+    this package's memory-mapped format, ``ocdbt-v1`` for the JAX package's
+    sharded artifact."""
+    with open(os.path.join(path, "meta.json")) as f:
+        return json.load(f)
+
+
+def _check_version(path: str, meta: dict) -> None:
+    if meta["format_version"] > CATALOG_FORMAT_VERSION:
+        raise ValueError(
+            f"catalog {path} has format v{meta['format_version']}, "
+            f"this build reads <= v{CATALOG_FORMAT_VERSION}"
+        )
 
 
 def from_raw_table(table: RawTable) -> Catalog:

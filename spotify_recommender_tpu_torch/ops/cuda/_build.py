@@ -38,8 +38,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
+_F32 = ctypes.c_float
 # C entry points: name -> argtypes (each returns cudaGetLastError() as int)
 _SIGNATURES = {
+    # q, qn, ft, ft_sd, ft_sc, cn, excl, b, f, np, valid, k, exact, eps,
+    # nsplit, split_cols, pv, pc, ov, oi, stream
+    "srt_fused_topk": (_P, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64,
+                       _I64, _I64, _I64, _F32, _I64, _I64, _P, _P, _P, _P,
+                       _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
     # q2, b, f, ft, ft_stride, np, depth, topc, ov, oi, ob, stream

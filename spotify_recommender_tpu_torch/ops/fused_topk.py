@@ -1,6 +1,14 @@
-"""Certified exact retrieval: bf16x2 bin scan + exact rerank + certificate.
+"""Exact retrieval tiers: the fused score + top-k kernel's users, and the
+certified tier (bf16x2 bin scan + exact rerank + certificate).
 
-The port of the JAX package's certified tier
+`prepare_and_call`, `FusedRetriever` and `fused_score_topk` port
+spotify_recommender_tpu/ops/pallas/fused_topk.py:415-584: kernel 3
+(ops/cuda/fused.py) over an fp32 catalog in the transposed (F, N) layout,
+in exact mode (the reference's division epilogue) or over prenormalized
+rows (`exact_scores=False`).  The JAX package's `_bucket_batch` /
+`_batch_inputs` are jit-cache workarounds and have no counterpart here.
+
+The certified tier ports the JAX package's
 (spotify_recommender_tpu/ops/pallas/fused_topk.py:787-831, :1273-2063):
 
     query norms + unit vectors          torch ops
@@ -38,6 +46,7 @@ import torch
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.core.logging import get_logger
 from spotify_recommender_tpu_torch.ops import similarity
+from spotify_recommender_tpu_torch.ops.cuda.fused import fused_topk
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import KERNEL_BINS, scan_v3
 from spotify_recommender_tpu_torch.ops.cuda.split import (
     split_bf16x2,
@@ -85,6 +94,147 @@ RERANK_ULP = 1e-6
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def query_inputs(
+    queries, exclude_rows, device: torch.device, feature_dim: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, F) contiguous fp32 queries and (B,) int64 exclusions (-1 =
+    none) on `device`, from tensors, arrays or lists."""
+    q = torch.atleast_2d(
+        torch.as_tensor(queries, dtype=torch.float32, device=device)
+    ).contiguous()
+    if q.shape[1] != feature_dim:
+        raise ValueError(f"query dim {q.shape[1]} != catalog dim {feature_dim}")
+    if exclude_rows is None:
+        excl = torch.full((q.shape[0],), -1, dtype=torch.int64, device=device)
+    else:
+        excl = torch.as_tensor(exclude_rows, device=device).long().contiguous()
+    return q, excl
+
+
+def prepare_and_call(
+    queries: torch.Tensor,       # (B, F) fp32 raw queries
+    exclude_rows: torch.Tensor,  # (B,) int64, columns of features_t, -1 = none
+    features_t: torch.Tensor,    # (F, Np) fp32
+    norms: torch.Tensor,         # (Np,) fp32 raw row norms
+    valid: int,                  # columns >= valid are padding
+    *,
+    k: int,
+    eps: float,
+    exact: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Query norms, prenormalized queries in fast mode, then kernel 3
+    (`_prepare_and_call`, fused_topk.py:419).  The kernel always sees the
+    raw norms: its 1e-8 guard is the reference's in both modes."""
+    qn = similarity.row_norms(queries)
+    if not exact:
+        # zero-norm queries stay zero: score 0, as the guard gives
+        queries = queries / qn.clamp_min(1e-30)[:, None]
+    return fused_topk(queries.contiguous(), qn, features_t, norms,
+                      exclude_rows, valid, k=k, exact=exact, eps=eps)
+
+
+def _check_fused_dtype(dtype: str) -> None:
+    if dtype in ("bfloat16", "bfloat16x2"):
+        raise NotImplementedError(
+            f"dtype={dtype!r}: the fused kernel's bf16 storage modes are "
+            "not ported (ROADMAP queue 1 item 9, superseded tiers)"
+        )
+    if dtype != "float32":
+        raise ValueError(f"unknown catalog dtype {dtype!r}")
+
+
+class FusedRetriever:
+    """The catalog in kernel 3's layout on the device: transposed (F, N)
+    fp32 rows, raw or prenormalized, with their raw norms (the
+    reference's one-time `initialize` H2D copy, Recommender.cu:153-175).
+
+    fp32 storage only.  The JAX package's bf16 and bf16x2 storage modes
+    raise `NotImplementedError`.  Unlike the TPU layout, the columns are
+    not padded: the CUDA kernel has no 128-lane tiles."""
+
+    def __init__(
+        self,
+        features: np.ndarray,          # (N, F) row-major catalog
+        norms: Optional[np.ndarray],
+        config: Optional[RetrievalConfig],
+        device: torch.device,
+    ) -> None:
+        config = config or RetrievalConfig()
+        _check_fused_dtype(config.dtype)
+        feats = np.asarray(features, np.float32)
+        if norms is None:
+            norms = np.linalg.norm(feats, axis=1).astype(np.float32)
+        norms = np.asarray(norms, np.float32)
+        if not config.exact_scores:
+            # rows prenormalized on the host, exactly as the JAX package
+            # does (fused_topk.py:506-509); zero-norm rows stay zero
+            feats = feats / np.maximum(norms, 1e-30)[:, None]
+        self._setup(feats.T, norms, feats.shape[0], config, device)
+
+    @classmethod
+    def from_layout(
+        cls,
+        features_t: np.ndarray,
+        norms: np.ndarray,
+        num_items: int,
+        config: Optional[RetrievalConfig],
+        device: torch.device,
+    ) -> "FusedRetriever":
+        """A retriever over a prebuilt (F, Np) layout and its (Np,) or
+        (1, Np) norms, e.g. `np.asarray` of the JAX `FusedRetriever`'s
+        `features_t` and `norms` (columns >= num_items are padding)."""
+        config = config or RetrievalConfig()
+        _check_fused_dtype(config.dtype)
+        if np.asarray(features_t).dtype != np.float32:
+            raise NotImplementedError(
+                f"{np.asarray(features_t).dtype} catalog layout: only fp32 "
+                "storage is ported (ROADMAP queue 1 item 9)"
+            )
+        self = cls.__new__(cls)
+        self._setup(features_t, np.asarray(norms, np.float32).reshape(-1),
+                    num_items, config, device)
+        return self
+
+    def _setup(self, features_t, norms, n, config, device) -> None:
+        self.config = config
+        self.device = device
+        self.exact = config.exact_scores
+        self.num_items = int(n)
+        self.feature_dim = features_t.shape[0]
+        # host copies: the arrays may be read-only (a JAX array's view)
+        self.features_t = torch.from_numpy(
+            np.array(features_t, np.float32, order="C")).to(device)
+        self.norms = torch.from_numpy(np.array(norms, np.float32)).to(device)
+
+    def __call__(
+        self, queries, k: int, exclude_rows=None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, F) queries -> (scores (B, k) fp32, rows (B, k) int64), on the
+        retriever's device; unfilled slots are (-inf, -1)."""
+        q, excl = query_inputs(queries, exclude_rows, self.device,
+                               self.feature_dim)
+        return prepare_and_call(
+            q, excl, self.features_t, self.norms, self.num_items,
+            k=k, eps=self.config.eps, exact=self.exact,
+        )
+
+
+def fused_score_topk(
+    queries,
+    features: np.ndarray,
+    norms: Optional[np.ndarray] = None,
+    *,
+    k: int = 10,
+    exclude_rows=None,
+    config: Optional[RetrievalConfig] = None,
+    device: torch.device = torch.device("cpu"),
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One-shot convenience wrapper (builds the layout per call; hold a
+    FusedRetriever for repeated queries against one catalog)."""
+    fr = FusedRetriever(np.asarray(features), norms, config, device)
+    return fr(queries, k, exclude_rows)
 
 
 @dataclasses.dataclass
@@ -334,27 +484,13 @@ class CertifiedRetriever:
             exclude_rows=excl, k=k, eps=self.config.eps,
         )
 
-    def _inputs(self, queries, exclude_rows):
-        q = torch.atleast_2d(
-            torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        ).contiguous()
-        if q.shape[1] != self.feature_dim:
-            raise ValueError(
-                f"query dim {q.shape[1]} != catalog dim {self.feature_dim}"
-            )
-        if exclude_rows is None:
-            excl = torch.full((q.shape[0],), -1, dtype=torch.int64,
-                              device=self.device)
-        else:
-            excl = torch.as_tensor(exclude_rows, device=self.device).long()
-        return q, excl
-
     def __call__(
         self, queries, k: int, exclude_rows=None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, F) queries -> (scores (B, k) fp32, rows (B, k) int64), on the
         retriever's device."""
-        queries, excl = self._inputs(queries, exclude_rows)
+        queries, excl = query_inputs(queries, exclude_rows, self.device,
+                                     self.feature_dim)
         dl = self.layout
         if k > dl.depth * dl.w:
             self._warn_large_k(k)

@@ -11,11 +11,14 @@ Equivalent of the reference's `Recommender` class
   `Recommendation` records;
 - `retrieve()` is batched many-query retrieval.
 
-Two backends, chosen from the config and the device the caller passes:
+Three backends, chosen from the config; the device is the caller's:
 
 - "certified" (default): the certified exact tier
   (ops/fused_topk.CertifiedRetriever).  On a CUDA device it launches the
   hand-written kernels; on the CPU it runs their plain torch versions.
+- "pallas" (`RetrievalConfig(exact_scores=False)`): the fused score +
+  top-k kernel over prenormalized fp32 rows (ops/fused_topk.FusedRetriever),
+  the JAX package's backend of the same name.
 - "oracle" (`RetrievalConfig(use_pallas=False)`): the plain exact oracle.
 
 There is no silent fallback: a CUDA device without a card, a missing
@@ -35,7 +38,10 @@ from spotify_recommender_tpu_torch.core.device import resolve_device
 from spotify_recommender_tpu_torch.core.logging import get_logger
 from spotify_recommender_tpu_torch.data.catalog import Catalog
 from spotify_recommender_tpu_torch.ops import similarity
-from spotify_recommender_tpu_torch.ops.fused_topk import CertifiedRetriever
+from spotify_recommender_tpu_torch.ops.fused_topk import (
+    CertifiedRetriever,
+    FusedRetriever,
+)
 from spotify_recommender_tpu_torch.retrieval.index import CatalogIndex
 
 log = get_logger(__name__)
@@ -70,22 +76,28 @@ class Retriever:
                 "a device mesh (sharded catalog) is not ported yet "
                 "(ROADMAP queue 1, multi-GPU)"
             )
-        if config.dtype != "float32" or not config.exact_scores:
+        if config.dtype != "float32":
             raise NotImplementedError(
-                f"dtype={config.dtype!r}, exact_scores={config.exact_scores}: "
-                "only the exact fp32 tiers are ported (the approx tier and "
-                "the fused kernel are ROADMAP queue 1 items 7 and 13)"
+                f"dtype={config.dtype!r}: the approx tier is not ported yet "
+                "(ROADMAP queue 1 item 10)"
             )
         self.catalog = catalog
         self.config = config
         self.device = resolve_device(device)
         self.index = CatalogIndex(catalog.track_ids, catalog.track_names)
         similarity.disable_tf32()
-        # the certified tier, or None on the oracle backend
+        # the certified tier, or None on the other backends
         self.certified: Optional[CertifiedRetriever] = None
-        if config.use_pallas:
+        # the fused kernel's retriever on the "pallas" backend
+        self.fused: Optional[FusedRetriever] = None
+        if config.use_pallas and config.exact_scores:
             self._backend = "certified"
             self.certified = CertifiedRetriever(
+                catalog.features, catalog.norms, config, self.device
+            )
+        elif config.use_pallas:
+            self._backend = "pallas"
+            self.fused = FusedRetriever(
                 catalog.features, catalog.norms, config, self.device
             )
         else:
@@ -118,6 +130,8 @@ class Retriever:
         k = self.config.top_k if k is None else k
         if self._backend == "certified":
             return self.certified(queries, k, exclude_rows)
+        if self._backend == "pallas":
+            return self.fused(queries, k, exclude_rows)
         queries = torch.atleast_2d(
             torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         )

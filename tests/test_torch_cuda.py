@@ -6,7 +6,7 @@ suite's conftest (which imports jax):
 
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider -q
 
-These repeat, at a small size, the split and scan phases of chip_smoke.py.
+These repeat, at a small size, the kernel phases of chip_smoke.py.
 """
 
 import numpy as np
@@ -15,6 +15,10 @@ import torch
 
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.ops import similarity
+from spotify_recommender_tpu_torch.ops.cuda.fused import (
+    fused_topk,
+    fused_topk_plain,
+)
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import scan_v3, scan_v3_plain
 from spotify_recommender_tpu_torch.ops.cuda.split import (
     split_bf16x2,
@@ -117,3 +121,54 @@ def test_certified_matches_oracle_on_card(cuda):
     assert torch.equal(i, ri)
     # rerank (gathered bmm) and oracle (matmul) sum in different orders
     assert (s - rs).abs().max().item() <= 1e-6
+
+
+def _fused_inputs(cuda, n, b, seed):
+    rng = np.random.default_rng(seed)
+    feats = rng.random((n, 12), dtype=np.float32)
+    feats[3] = 0.0                                  # zero-norm row: score 0
+    feats[n // 2] = feats[1]                        # duplicate: a tie
+    rows = rng.integers(0, n, b)
+    q = feats[rows] + 0.01 * rng.standard_normal((b, 12)).astype(np.float32)
+    excl = np.where(np.arange(b) % 3 == 0, -1, rows)
+    f = torch.from_numpy(feats).to(cuda)
+    qt = torch.from_numpy(q).to(cuda)
+    return f, qt, torch.from_numpy(excl).to(cuda)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("n,b,k,layout", [
+    (20011, 40, 10, "transposed"),   # 20 catalog splits, 3 query tiles
+    (5000, 1, 100, "transposed"),    # B = 1, large k
+    (9000, 17, 128, "rows"),         # the largest k, a row-major view
+    (50, 3, 64, "transposed"),       # fewer valid columns than k
+])
+def test_fused_topk_bitwise_equals_plain(cuda, exact, n, b, k, layout):
+    f, q, excl = _fused_inputs(cuda, n, b, seed=n)
+    norms = similarity.row_norms(f)
+    qn = similarity.row_norms(q)
+    if not exact:
+        f = f / norms.clamp_min(1e-30)[:, None]
+        q = q / qn.clamp_min(1e-30)[:, None]
+    ft = f.t().contiguous() if layout == "transposed" else f.t()
+    valid = n - 7                                   # the last 7 are padding
+    before = fused_topk.launches
+    ov, oi = fused_topk(q, qn, ft, norms, excl, valid, k=k, exact=exact)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    pv, pi = fused_topk_plain(q, qn, ft, norms, excl, valid, k=k, exact=exact)
+    # the plain version rounds each multiply and add as the kernel does
+    assert torch.equal(oi, pi)
+    assert torch.equal(ov, pv)
+    assert (oi < valid).all()
+    assert not ((oi == excl[:, None]) & (excl[:, None] >= 0)).any()
+    if valid < k:                                   # unfilled: (-inf, -1)
+        assert ((oi == -1).sum(dim=1) >= k - valid).all()
+        assert torch.equal(oi == -1, ov == float("-inf"))
+
+
+def test_fused_topk_rejects_k_above_limit(cuda):
+    f, q, excl = _fused_inputs(cuda, 300, 2, seed=0)
+    with pytest.raises(ValueError, match="128"):
+        fused_topk(q, similarity.row_norms(q), f.t(), similarity.row_norms(f),
+                   excl, 300, k=129, exact=True)

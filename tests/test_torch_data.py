@@ -43,15 +43,16 @@ def both(tmp_path):
     return tcat.preprocess_csv(str(path)), jcat.preprocess_csv(str(path))
 
 
-@pytest.mark.parametrize("fmt", ["npz", "bin"])
+@pytest.mark.parametrize("fmt", ["npz", "bin", "dir"])
 @pytest.mark.parametrize("writer", ["torch", "jax"])
 def test_catalog_files_cross_load(tmp_path, both, fmt, writer):
-    """A file written by either package loads in the other."""
+    """A file (or dir-v1 directory) written by either package loads in the
+    other."""
     t, j = both
     path = str(tmp_path / f"cat.{fmt}")
     src = t if writer == "torch" else j
-    if fmt == "npz":
-        src.save(path)
+    if fmt in ("npz", "dir"):
+        src.save(path) if fmt == "npz" else src.save_dir(path)
         loaded = [tcat.Catalog.load(path), jcat.Catalog.load(path)]
     else:
         src.save_reference_binary(path)
@@ -64,7 +65,11 @@ def test_catalog_files_cross_load(tmp_path, both, fmt, writer):
 
 
 def test_catalog_dir_format_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # dir-v1 is ported (test_catalog_files_cross_load); the JAX package's
+    # sharded ocdbt-v1 directory is not, and loading one raises
+    (tmp_path / "meta.json").write_text(
+        '{"format_version": 1, "layout": "ocdbt-v1"}')
+    with pytest.raises(ValueError, match="ocdbt-v1"):
         tcat.Catalog.load(str(tmp_path))
 
 
