@@ -12,7 +12,12 @@ at the benchmark's sizes:
 - phase 7: the fused score + top-k kernel at those shapes, both modes;
 - phase 8: the Retriever's "pallas" backend and an exact `FusedRetriever`;
 - phase 9: `StreamingRetriever` over a memory-mapped 4,000,000 x 12
-  catalog directory, B = 256, window 1,048,576, and `retrieve --streaming`.
+  catalog directory, B = 256, window 1,048,576, and `retrieve --streaming`;
+- phase 10: the certified tier under `scan="v2"` (kernel 4, W = 512) at
+  the phase-6 cell, kernel 4 against its plain version, and kernel 1 at
+  W = 512 (`scan_bins=512`) against its plain version and the oracle;
+- phase 11: `FusedRetriever` over bf16 and bf16x2 storage (kernel 3's bf16
+  instances) and `PrefilterRetriever`, at the phase-6 cell.
 
 Every phase prints one line; any failure raises and exits non-zero.  The next-to-last line is a JSON object of the kernels (launches
 on the main path, error against the plain version, times); the last line is
@@ -56,6 +61,10 @@ from spotify_recommender_tpu_torch.ops.cuda.fused import (  # noqa: E402
     fused_topk,
     fused_topk_plain,
 )
+from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import (  # noqa: E402
+    scan_v2,
+    scan_v2_plain,
+)
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (  # noqa: E402
     scan_v3,
     scan_v3_plain,
@@ -67,6 +76,7 @@ from spotify_recommender_tpu_torch.ops.cuda.split import (  # noqa: E402
 from spotify_recommender_tpu_torch.ops.fused_topk import (  # noqa: E402
     BF16X2_EPS,
     FusedRetriever,
+    PrefilterRetriever,
     build_certified_layout,
     layout_to_device,
     prepare_and_call,
@@ -85,7 +95,11 @@ TOL = 1e-6   # kernel vs plain: values and bounds (same fp32 products)
 # scores within 1e-6; prenormalized scores round the unit rows and queries
 # once more each, so within 1e-5
 TOL_EXACT, TOL_FAST = 1e-6, 1e-5
+# bf16 storage against the oracle: each unit vector's bf16 rounding moves it
+# by <= 2^-8 of its length, so a cosine moves by <= 2 * 2^-8 (Cauchy-Schwarz)
+TOL_BF16 = 2 * 2.0**-8 + 1e-6
 PALLAS = "spotify_recommender_tpu/ops/pallas/fused_topk.py"
+CSRC = "spotify_recommender_tpu_torch/csrc"
 
 
 def check(cond: bool, what: str) -> None:
@@ -135,22 +149,44 @@ def split_queries(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([qh, ql, ql, qh], dim=1)
 
 
-def compare_scan(q2, ft, depth, topc):
-    """Scan kernel vs plain on the same inputs.  Returns (max abs error of
-    values and bounds, bitwise equal?, kernel outputs)."""
-    kv, ki, kb = scan_v3(q2, ft, w=128, depth=depth, topc=topc)
-    pv, pi, pb = scan_v3_plain(q2, ft, w=128, depth=depth, topc=topc)
+def compare_scan(q2, ft, depth, topc, w=128, v2=None):
+    """Scan kernel vs plain on the same inputs: kernel 1, or kernel 4 with
+    `v2` = (qn, norms, excl, valid, eps).  Returns (max abs error of values
+    and bounds, bitwise equal?, kernel outputs)."""
+    if v2 is None:
+        kv, ki, kb = scan_v3(q2, ft, w=w, depth=depth, topc=topc)
+        pv, pi, pb = scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc)
+    else:
+        qn, nrm, ex, valid, eps = v2
+        kv, ki, kb = scan_v2(q2, qn, ft, nrm, ex, valid, w=w, eps=eps, topc=topc)
+        pv, pi, pb = scan_v2_plain(q2, qn, ft, nrm, ex, valid, w=w, eps=eps,
+                                   topc=topc)
     torch.cuda.synchronize()
-    err = max((kv - pv).abs().max().item(), (kb - pb).abs().max().item())
-    check(err <= TOL, f"scan depth {depth}: values/bounds differ by {err}")
+    what = f"scan {'v2' if v2 else 'v3'} w={w} depth {depth} topc={topc}"
+    check(torch.equal(torch.isinf(kv), torch.isinf(pv))
+          and torch.equal(torch.isinf(kb), torch.isinf(pb)),
+          f"{what}: -inf slots differ")
+    err = max(finite_diff(kv, pv), finite_diff(kb, pb))
+    check(err <= TOL, f"{what}: values/bounds differ by {err}")
     # indices must agree wherever the plain values leave no near-tie
     gaps = (pv[:, :-1] - pv[:, 1:]) > TOL
     ones = torch.ones_like(gaps[:, :1])
     sep = torch.cat([ones, gaps], 1) & torch.cat([gaps, ones], 1)
     sep[:, -1] = False      # the (C+1)-th value is unknown
-    check(torch.equal(ki[sep], pi[sep]), f"scan depth {depth}: indices differ")
+    check(torch.equal(ki[sep], pi[sep]), f"{what}: indices differ")
     bitwise = torch.equal(kv, pv) and torch.equal(ki, pi) and torch.equal(kb, pb)
     return err, bitwise, (kv, ki, kb)
+
+
+def finite_diff(a, b) -> float:
+    """Max |a - b| over the entries where both are finite (0 if none)."""
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return (a - b)[fin].abs().max().item() if fin.any() else 0.0
+
+
+def recall(i, ri) -> float:
+    """Share of the oracle's top-k rows that `i` holds, per query row."""
+    return (i[:, :, None] == ri[:, None, :]).any(dim=2).float().mean().item()
 
 
 def compare_oracle(s, i, rs, ri, tol: float, what: str) -> Tuple[float, int]:
@@ -237,11 +273,11 @@ def main() -> None:
 
     # ---- 1. environment
     info = device_info(DEV)
-    name, count = info.device_kind, info.num_devices
+    kind, count = info.device_kind, info.num_devices
     nvcc = subprocess.run([_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
     smi = nvidia_smi("name,power.limit").splitlines()[0]
-    print(f"phase 1 environment: {name} x{count}, torch {torch.__version__}, "
+    print(f"phase 1 environment: {kind} x{count}, torch {torch.__version__}, "
           f"torch.version.cuda {info.cuda_version}, nvcc {nvcc!r}, "
           f"power limit {info.power_limit}, nvidia-smi {smi!r}")
 
@@ -249,8 +285,12 @@ def main() -> None:
     t0 = time.perf_counter()
     lib = _build.build()
     _build.library()
+    log = (lib.parent / _build.LOG_NAME).read_text()
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
     print(f"phase 2 build: {lib.name} from {len(_build.sources())} sources in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s; ptxas: {len(regs)} kernels, "
+          f"{min(regs)}-{max(regs)} registers, {spills} bytes of spill stores")
 
     # ---- 3. split: kernel vs plain, bitwise
     rng = np.random.default_rng(0)
@@ -526,8 +566,148 @@ def main() -> None:
           f"streaming_link_efficiency {gbps / link:.3f}; retrieve --streaming "
           "rows equal the library call's")
 
+    # ---- 10. the v2 certified tier (kernel 4) and kernel 1 at W = 512
+    f_dev = torch.from_numpy(feats).to(DEV)
+    t0 = time.perf_counter()
+    r10 = Retriever(cat, RetrievalConfig(scan="v2"), DEV)
+    torch.cuda.synchronize()
+    t_setup10 = time.perf_counter() - t0
+    dl10 = r10.certified.layout
+    check((dl10.scan, dl10.w, dl10.depth) == ("v2", 512, 3),
+          f"v2 layout {dl10.scan} W={dl10.w} depth {dl10.depth}")
+    split_bf16x2.launches = scan_v2.launches = 0
+    s10, i10 = r10.retrieve(queries, k=k, exclude_rows=excl)
+    torch.cuda.synchronize()
+    launches_v2 = {"split_bf16x2": split_bf16x2.launches,
+                   "scan_v2": scan_v2.launches}
+    check(all(v > 0 for v in launches_v2.values()),
+          f"a kernel of the v2 path did not launch: {launches_v2}")
+    fb10 = r10.certified.fallbacks
+    check(torch.equal(i10, ri), "v2 certified indices differ from the "
+          f"oracle's in {(i10 != ri).sum().item()} of {b * k}")
+    err10 = (s10 - rs).abs().max().item()
+    check(err10 <= TOL_EXACT, f"v2 scores differ from the oracle's by {err10}")
+    batch10 = wall_ms(lambda: r10.retrieve(queries, k=k, exclude_rows=excl), 20)
+    b1_10 = wall_ms(lambda: r10.retrieve(q1, k=k, exclude_rows=e1), 20)
+    # kernel 4 against its plain version: compact at the path's shapes, and
+    # the full structures over the first 65,536 columns of 64 queries
+    v2args = (qn, dl10.nrm_row, excl, n, 1e-8)
+    err4, bit4, _ = compare_scan(q2, dl10.ft, 3, 32, w=512, v2=v2args)
+    m = 65536
+    errf, bitf, (fv, _, fb) = compare_scan(
+        q2[:64].contiguous(), dl10.ft[:, :m], 3, 0, w=512,
+        v2=(qn[:64], dl10.nrm_row[:m], excl[:64], m, 1e-8))
+    check(fv.shape == (64, 3 * 512) and fb.shape == (64, 512), "full shapes")
+    kernels["scan_v2"] = dict(
+        source=f"{CSRC}/scan_v2.cu", replaces=f"{PALLAS}:834",
+        max_abs_err=max(err4, errf),
+        ms=sync_ms(lambda: scan_v2(q2, qn, dl10.ft, dl10.nrm_row, excl, n,
+                                   w=512, eps=1e-8, topc=32), 10),
+        plain_ms=sync_ms(lambda: scan_v2_plain(q2, qn, dl10.ft, dl10.nrm_row,
+                                               excl, n, w=512, eps=1e-8,
+                                               topc=32), 3),
+    )
+    launches.update(scan_v2=launches_v2["scan_v2"])
+    launches["split_bf16x2"] += launches_v2["split_bf16x2"]
+    del r10, dl10
+    # kernel 1 at W = 512: a certified batch and the kernel against plain
+    r512 = Retriever(cat, RetrievalConfig(scan_bins=512), DEV)
+    ft512 = r512.certified.layout.ft
+    check(r512.certified.layout.w == 512, "scan_bins=512 layout")
+    scan_v3.launches = 0
+    s512, i512 = r512.retrieve(queries, k=k, exclude_rows=excl)
+    torch.cuda.synchronize()
+    launched512 = scan_v3.launches
+    check(launched512 > 0, "W=512: the scan kernel did not launch")
+    check(torch.equal(i512, ri), "W=512 certified indices differ from the "
+          f"oracle's in {(i512 != ri).sum().item()} of {b * k}")
+    fb512, esc512 = r512.certified.fallbacks, r512.certified.escalations
+    errw2, bitw2, _ = compare_scan(q2, ft512, 2, 32, w=512)
+    errw3, bitw3, _ = compare_scan(q2[:32].contiguous(), ft512, 3, 32, w=512)
+    kernels["scan_v3_w512"] = dict(
+        source=f"{CSRC}/scan_v3.cu", replaces=f"{PALLAS}:1069",
+        max_abs_err=max(errw2, errw3),
+        ms=sync_ms(lambda: scan_v3(q2, ft512, w=512, depth=2, topc=32), 10),
+        plain_ms=sync_ms(lambda: scan_v3_plain(q2, ft512, w=512, depth=2,
+                                               topc=32), 3),
+    )
+    launches["scan_v3_w512"] = launched512
+    batch512 = wall_ms(lambda: r512.retrieve(queries, k=k, exclude_rows=excl), 5)
+    print(f"phase 10 v2 certified tier: N={n} B={b} k={k} W=512 depth 3: "
+          f"{b * k} of {b * k} indices equal the oracle's on the card (max "
+          f"score diff {err10:.3g}); fallbacks {fb10} per batch; launches "
+          f"{launches_v2}; batch {batch10:.3f} ms median of 20 "
+          f"({b / batch10 * 1e3:.0f} q/s); B=1 {b1_10:.3f} ms; setup "
+          f"{t_setup10:.1f} s; kernel 4 ({b} x {ft512.shape[1]}, C=32) "
+          f"{kernels['scan_v2']['ms']:.3f} ms vs plain "
+          f"{kernels['scan_v2']['plain_ms']:.3f} ms, max err {err4:.3g} "
+          f"(bitwise {bit4}); full structures (64 x {m}) max err {errf:.3g} "
+          f"(bitwise {bitf}); kernel 1 at W=512: certified batch equal to the "
+          f"oracle ({launched512} launches, {fb512} fallbacks, {esc512} "
+          f"escalations per batch, {batch512:.3f} ms), depth 2 "
+          f"{kernels['scan_v3_w512']['ms']:.3f} ms vs plain "
+          f"{kernels['scan_v3_w512']['plain_ms']:.3f} ms (bitwise {bitw2}), "
+          f"depth 3 on 32 queries bitwise {bitw3}")
+    del r512, ft512
+
+    # ---- 11. kernel 3 over bf16 and bf16x2 storage, and the prefilter
+    line = []
+    for dtype, kname in (("bfloat16", "fused_topk_bf16"),
+                         ("bfloat16x2", "fused_topk_bf16x2")):
+        fr11 = FusedRetriever(feats, norms, RetrievalConfig(
+            dtype=dtype, exact_scores=False), DEV)
+        fused_topk.launches = 0
+        s11, i11 = fr11(queries, k, excl)
+        torch.cuda.synchronize()
+        launches[kname] = fused_topk.launches
+        check(launches[kname] > 0, f"{dtype}: the fused kernel did not launch")
+        tol = TOL_BF16 if dtype == "bfloat16" else BF16X2_EPS
+        agree = i11 == ri
+        oerr = (s11 - rs)[agree].abs().max().item()
+        check(oerr <= tol, f"{dtype}: scores differ from the oracle's by {oerr}")
+        rec = recall(i11, ri)
+        if dtype == "bfloat16":
+            qb = qunit.to(torch.bfloat16)
+        else:
+            qb = torch.cat([hi, lo, lo, hi], dim=1)
+        args = (qb, qn, fr11.features_t, fr11.norms, excl, n)
+        _, _, kerr = compare_fused(args, k, False, f"fused {dtype}")
+        kernels[kname] = dict(
+            source=f"{CSRC}/fused_topk.cu", replaces=f"{PALLAS}:52",
+            max_abs_err=kerr,
+            ms=sync_ms(lambda: fused_topk(*args, k=k, exact=False), 20),
+            plain_ms=sync_ms(lambda: fused_topk_plain(*args, k=k, exact=False), 3),
+        )
+        t_b = wall_ms(lambda: fr11(queries, k, excl), 20)
+        t_1 = wall_ms(lambda: fr11(q1, k, e1), 20)
+        line.append(
+            f"{dtype}: {launches[kname]} launch, bitwise equal to plain, kernel "
+            f"{kernels[kname]['ms']:.3f} ms vs plain "
+            f"{kernels[kname]['plain_ms']:.3f} ms; recall@{k} {rec:.4f}, max "
+            f"score diff where indices agree {oerr:.3g} (limit {tol:.3g}); "
+            f"batch {t_b:.3f} ms ({b / t_b * 1e3:.0f} q/s); B=1 {t_1:.3f} ms")
+        del fr11
+    pr = PrefilterRetriever(feats, norms, None, DEV, prefilter=64)
+    fused_topk.launches = 0
+    sp, ip = pr(queries, k, excl)
+    torch.cuda.synchronize()
+    check(fused_topk.launches > 0, "prefilter: the fused kernel did not launch")
+    launches["fused_topk_bf16"] += fused_topk.launches
+    rec_p = recall(ip, ri)
+    check(rec_p >= 0.99, f"prefilter recall@{k} {rec_p}")
+    agree = ip == ri
+    perr = (sp - rs)[agree].abs().max().item()
+    check(perr <= TOL_EXACT, f"prefilter scores differ from the oracle's by {perr}")
+    t_pb = wall_ms(lambda: pr(queries, k, excl), 20)
+    t_p1 = wall_ms(lambda: pr(q1, k, e1), 20)
+    print(f"phase 11 bf16 tiers: N={n} B={b} k={k}; " + "; ".join(line)
+          + f"; PrefilterRetriever(prefilter=64): recall@{k} {rec_p:.4f}, max "
+          f"score diff where indices agree {perr:.3g}, batch {t_pb:.3f} ms "
+          f"({b / t_pb * 1e3:.0f} q/s), B=1 {t_p1:.3f} ms")
+    del pr, f_dev
+
     kernels["fused_topk"] = dict(
-        source="spotify_recommender_tpu_torch/csrc/fused_topk.cu",
+        source=f"{CSRC}/fused_topk.cu",
         replaces=f"{PALLAS}:52", max_abs_err=fused_err,
         ms=fused_times[True][0], plain_ms=fused_times[True][1],
     )
@@ -539,7 +719,7 @@ def main() -> None:
         for nm, kv in kernels.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": count}}))
+        "platform": "gpu", "kind": kind, "count": count}}))
 
 
 if __name__ == "__main__":

@@ -57,7 +57,9 @@ class RetrievalConfig:
     # True: the certified tier (hand-written kernels); False: the oracle.
     use_pallas: bool = True
     # Catalog storage dtype. "float32" (default) keeps the certified
-    # exact tier.  "bfloat16" selects the approx tier (not ported yet).
+    # exact tier.  FusedRetriever also stores "bfloat16" or "bfloat16x2"
+    # (with exact_scores=False); for the Retriever, "bfloat16" selects the
+    # approx tier (not ported yet).
     dtype: str = "float32"
     # True: reproduce the reference's division-form cosine epilogue
     # (dot / (|x||q|) with the 1e-8 product guard) bit-faithfully.
@@ -65,13 +67,15 @@ class RetrievalConfig:
     # CertifiedRetriever: candidates kept by the bf16x2 prefilter before
     # the exact fp32 rerank; larger = fewer certificate fallbacks.
     prefilter: int = 32
-    # Certified scan kernel: only "v3" (epilogue-free bin scan) is ported.
+    # Certified scan kernel: "v3" (epilogue-free bin scan, kernel 1) or
+    # "v2" (cosine epilogue and masks inside, depth 3, W = 512; kernel 4).
     scan: str = "v3"
     # v3 bin depth: each bin keeps its top-`scan_depth` candidates plus a
     # (depth+1)-th-best coverage bound.  Default: depth 2 with a depth-3
     # escalation rescan of the queries whose certificate fails.
     scan_depth: int = 2
-    # v3 bin count W (0 = auto: 128).  The CUDA kernel supports W = 128 only.
+    # v3 bin count W (0 = auto: 128), a multiple of 128; halved until it
+    # divides the catalog tile.  The CUDA scans take W <= 1024.
     scan_bins: int = 0
     # Depth-escalation rescan (0 = disabled): certificate-failing queries
     # are re-scanned at THIS deeper bin depth before any oracle fallback.

@@ -1,16 +1,24 @@
-// Fused exact cosine score + top-k over an fp32 catalog.
+// Fused cosine score + top-k over an fp32, bf16 or bf16x2 catalog.
 //
 // Replaces the TPU kernel `_fused_kernel` / `_fused_call`
 // (spotify_recommender_tpu/ops/pallas/fused_topk.py:52, :353), the kernel
-// behind `FusedRetriever` and the streaming tier's per-window scoring.
+// behind `FusedRetriever`, `PrefilterRetriever` and the streaming tier's
+// per-window scoring.
 //
 // What it computes, for every query q of a batch against catalog columns
-// 0..np-1 of the transposed (F, np) fp32 layout:
+// 0..np-1 of the transposed (Fc, np) layout, with queries of width Fq:
 //
-//   dot(q, c)  = sum over d = 0..F-1, ascending, of q[d]*f[d][c], with one
-//                rounding per multiply and one per add (__fmul_rn /
+//   dot(q, c)  = sum over d = 0..Fq-1, ascending, of q[d]*f[d mod Fc][c],
+//                with one rounding per multiply and one per add (__fmul_rn /
 //                __fadd_rn, which nvcc never contracts into an FMA), so the
-//                plain torch version (ops/cuda/fused.py) is bitwise equal
+//                plain torch version (ops/cuda/fused.py) is bitwise equal.
+//                Storage (the TPU kernel's `is_bf16` branch, :112-136):
+//                fp32 (Fq = Fc = F); bf16 (Fq = Fc = F); bf16x2, queries
+//                [qh, ql, ql, qh] (Fq = 4F) against planes [hi; lo]
+//                (Fc = 2F) or [hi; lo; hi; lo] (Fc = 4F): the same products
+//                in the same order either way.  A product of two bf16
+//                values is exact in fp32, so the bf16 sums are the TPU
+//                MXU's: exact products added in fp32
 //   den        = qn * cn              (the raw norms, in both modes)
 //   score      = den > eps ? clamp(dot / den, -1, 1) : 0     exact mode
 //                den > eps ? clamp(dot, -1, 1)       : 0     prenormalized
@@ -51,6 +59,7 @@
 // Limits: k <= 128 (4 list slots per lane), at most 128 splits, column
 // indices below 2^31.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -67,6 +76,11 @@ constexpr int kQPW = kTQ / kWarps;      // queries per warp in the select step
 constexpr int kTC = kThreads;           // columns per tile: one per thread
 constexpr int kMaxSplits = 128;         // 4 per lane in the merge
 constexpr int kMergeWarps = 4;
+
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
 
 // (av, ac) ranks before (bv, bc): value descending, column ascending
 __device__ __forceinline__ bool ranks_before(float av, int ac, float bv,
@@ -121,19 +135,19 @@ __device__ __forceinline__ void list_insert(float (&v)[KPL], int (&c)[KPL],
   }
 }
 
-template <int KPL, bool EXACT>
+template <int KPL, bool EXACT, typename T>
 __global__ void __launch_bounds__(kThreads)
-    fused_partial_kernel(const float* __restrict__ q,
+    fused_partial_kernel(const T* __restrict__ q,
                          const float* __restrict__ qn,
-                         const float* __restrict__ ft, int64_t ft_sd,
+                         const T* __restrict__ ft, int64_t ft_sd,
                          int64_t ft_sc, const float* __restrict__ cn,
-                         const int64_t* __restrict__ excl, int64_t b, int f,
-                         int64_t np, int64_t valid, int k, float eps,
+                         const int64_t* __restrict__ excl, int64_t b, int fq,
+                         int fc, int64_t np, int64_t valid, int k, float eps,
                          int64_t split_cols, int nsplit,
                          float* __restrict__ pv, int* __restrict__ pc) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // [f][kTQ] query values
-  float* sc = smem + f * kTQ;            // [kTQ][kTC] tile scores
+  float* qs = smem;                      // [fq][kTQ] query values
+  float* sc = smem + fq * kTQ;           // [kTQ][kTC] tile scores
   __shared__ float sqn[kTQ];
   __shared__ int sex[kTQ];
 
@@ -146,10 +160,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t c_end =
       c_begin + split_cols < np ? c_begin + split_cols : np;
 
-  for (int i = t; i < f * kTQ; i += kThreads) {
+  for (int i = t; i < fq * kTQ; i += kThreads) {
     const int d = i / kTQ;
     const int qq = i % kTQ;
-    qs[i] = (q0 + qq < b) ? q[(q0 + qq) * f + d] : 0.0f;
+    qs[i] = (q0 + qq < b) ? load(q + (q0 + qq) * fq + d) : 0.0f;
   }
   if (t < kTQ) {
     const bool in = q0 + t < b;
@@ -176,8 +190,8 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t col = base + t;
     float s[kTQ];
     if (col < c_end) {
-      const float* fp = ft + col * ft_sc;
-      const float f0 = __ldg(fp);
+      const T* fp = ft + col * ft_sc;
+      const float f0 = load(fp);
 #pragma unroll
       for (int j = 0; j < kTQ / 4; ++j) {
         const float4 a = reinterpret_cast<const float4*>(qs)[j];
@@ -186,8 +200,8 @@ __global__ void __launch_bounds__(kThreads)
         s[4 * j + 2] = __fmul_rn(a.z, f0);
         s[4 * j + 3] = __fmul_rn(a.w, f0);
       }
-      for (int d = 1; d < f; ++d) {
-        const float fd = __ldg(fp + d * ft_sd);
+      for (int d = 1; d < fq; ++d) {
+        const float fd = load(fp + (d < fc ? d : d - fc) * ft_sd);
         const float4* qd = reinterpret_cast<const float4*>(qs + d * kTQ);
 #pragma unroll
         for (int j = 0; j < kTQ / 4; ++j) {
@@ -313,82 +327,87 @@ __global__ void __launch_bounds__(kMergeWarps * 32)
   }
 }
 
-template <int KPL, bool EXACT>
-int launch_partial(const void* q, const void* qn, const void* ft,
-                   int64_t ft_sd, int64_t ft_sc, const void* cn,
-                   const void* excl, int64_t b, int f, int64_t np,
-                   int64_t valid, int k, float eps, int nsplit,
-                   int64_t split_cols, void* pv, void* pc,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(f) * kTQ +
+// The arguments of one call, as the C entry point receives them.
+struct Args {
+  const void* q;
+  const void* qn;
+  const void* ft;
+  int64_t ft_sd, ft_sc;
+  const void* cn;
+  const void* excl;
+  int64_t b;
+  int fq, fc;
+  int64_t np, valid;
+  int k;
+  float eps;
+  int nsplit;
+  int64_t split_cols;
+  void* pv;
+  void* pc;
+};
+
+template <int KPL, bool EXACT, typename T>
+int launch_partial(const Args& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (static_cast<size_t>(a.fq) * kTQ +
                                        static_cast<size_t>(kTQ) * kTC);
-  auto kernel = fused_partial_kernel<KPL, EXACT>;
+  auto kernel = fused_partial_kernel<KPL, EXACT, T>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(static_cast<unsigned>((b + kTQ - 1) / kTQ),
-                  static_cast<unsigned>(nsplit));
+  const dim3 grid(static_cast<unsigned>((a.b + kTQ - 1) / kTQ),
+                  static_cast<unsigned>(a.nsplit));
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(qn),
-      static_cast<const float*>(ft), ft_sd, ft_sc,
-      static_cast<const float*>(cn), static_cast<const int64_t*>(excl), b, f,
-      np, valid, k, eps, split_cols, nsplit, static_cast<float*>(pv),
-      static_cast<int*>(pc));
+      static_cast<const T*>(a.q), static_cast<const float*>(a.qn),
+      static_cast<const T*>(a.ft), a.ft_sd, a.ft_sc,
+      static_cast<const float*>(a.cn), static_cast<const int64_t*>(a.excl),
+      a.b, a.fq, a.fc, a.np, a.valid, a.k, a.eps, a.split_cols, a.nsplit,
+      static_cast<float*>(a.pv), static_cast<int*>(a.pc));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool EXACT>
-int launch_k(int k, const void* q, const void* qn, const void* ft,
-             int64_t ft_sd, int64_t ft_sc, const void* cn, const void* excl,
-             int64_t b, int f, int64_t np, int64_t valid, float eps,
-             int nsplit, int64_t split_cols, void* pv, void* pc,
-             cudaStream_t s) {
-  if (k <= 32)
-    return launch_partial<1, EXACT>(q, qn, ft, ft_sd, ft_sc, cn, excl, b, f,
-                                    np, valid, k, eps, nsplit, split_cols,
-                                    pv, pc, s);
-  if (k <= 64)
-    return launch_partial<2, EXACT>(q, qn, ft, ft_sd, ft_sc, cn, excl, b, f,
-                                    np, valid, k, eps, nsplit, split_cols,
-                                    pv, pc, s);
-  return launch_partial<4, EXACT>(q, qn, ft, ft_sd, ft_sc, cn, excl, b, f,
-                                  np, valid, k, eps, nsplit, split_cols, pv,
-                                  pc, s);
+template <bool EXACT, typename T>
+int launch_k(const Args& a, cudaStream_t s) {
+  if (a.k <= 32) return launch_partial<1, EXACT, T>(a, s);
+  if (a.k <= 64) return launch_partial<2, EXACT, T>(a, s);
+  return launch_partial<4, EXACT, T>(a, s);
 }
 
 }  // namespace
 
-// q (b, f) f32 contiguous; qn (b,) f32; catalog value (d, c) at
-// ft[d * ft_sd + c * ft_sc], c < np; cn (np,) f32; excl (b,) int64; pv, pc
-// (b, nsplit, k) f32 / int32 scratch; out ov (b, k) f32, oi (b, k) int64.
-// Split s covers columns [s * split_cols, (s + 1) * split_cols).  Returns
-// cudaGetLastError().
+// q (b, fq) contiguous, f32 or (bf16 != 0) bf16; qn (b,) f32; catalog value
+// (d, c) at ft[d * ft_sd + c * ft_sc], d < fc, c < np, of q's type, with
+// fq == fc, or fq == 2 * fc for bf16x2 over [hi; lo]; cn (np,) f32; excl
+// (b,) int64; pv, pc (b, nsplit, k) f32 / int32 scratch; out ov (b, k) f32,
+// oi (b, k) int64.  Split s covers columns [s * split_cols, (s + 1) *
+// split_cols).  bf16 storage takes prenormalized rows only (exact == 0).
+// Returns cudaGetLastError().
 extern "C" int srt_fused_topk(const void* q, const void* qn, const void* ft,
                               int64_t ft_sd, int64_t ft_sc, const void* cn,
-                              const void* excl, int64_t b, int64_t f,
-                              int64_t np, int64_t valid, int64_t k,
-                              int64_t exact, float eps, int64_t nsplit,
-                              int64_t split_cols, void* pv, void* pc,
-                              void* ov, void* oi, void* stream) {
+                              const void* excl, int64_t b, int64_t fq,
+                              int64_t fc, int64_t np, int64_t valid,
+                              int64_t k, int64_t exact, int64_t bf16,
+                              float eps, int64_t nsplit, int64_t split_cols,
+                              void* pv, void* pc, void* ov, void* oi,
+                              void* stream) {
   if (b == 0) return static_cast<int>(cudaGetLastError());
-  if (k < 1 || k > 128 || nsplit < 1 || nsplit > kMaxSplits || f < 1 ||
+  if (k < 1 || k > 128 || nsplit < 1 || nsplit > kMaxSplits || fc < 1 ||
+      (fq != fc && !(bf16 && fq == 2 * fc)) || (bf16 && exact) ||
       np >= INT_MAX || split_cols * nsplit < np)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int ki = static_cast<int>(k);
-  const int fi = static_cast<int>(f);
-  const int ns = static_cast<int>(nsplit);
-  const int err =
-      exact ? launch_k<true>(ki, q, qn, ft, ft_sd, ft_sc, cn, excl, b, fi, np,
-                             valid, eps, ns, split_cols, pv, pc, s)
-            : launch_k<false>(ki, q, qn, ft, ft_sd, ft_sc, cn, excl, b, fi,
-                              np, valid, eps, ns, split_cols, pv, pc, s);
+  const Args a{q, qn, ft, ft_sd, ft_sc, cn, excl, b,
+               static_cast<int>(fq), static_cast<int>(fc), np, valid,
+               static_cast<int>(k), eps, static_cast<int>(nsplit),
+               split_cols, pv, pc};
+  const int err = bf16    ? launch_k<false, __nv_bfloat16>(a, s)
+                  : exact ? launch_k<true, float>(a, s)
+                          : launch_k<false, float>(a, s);
   if (err != 0) return err;
   const int64_t blocks = (b + kMergeWarps - 1) / kMergeWarps;
   fused_merge_kernel<<<static_cast<unsigned>(blocks), kMergeWarps * 32, 0,
                        s>>>(static_cast<const float*>(pv),
-                            static_cast<const int*>(pc), b, ns, ki,
+                            static_cast<const int*>(pc), b, a.nsplit, a.k,
                             static_cast<float*>(ov),
                             static_cast<int64_t*>(oi));
   return static_cast<int>(cudaGetLastError());

@@ -1,10 +1,13 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-All sources under `spotify_recommender_tpu_torch/csrc/*.cu` go into one
-shared library with a plain C interface:
+All sources under `spotify_recommender_tpu_torch/csrc/*.cu` (with the
+headers `csrc/*.cuh` they include) go into one shared library with a plain
+C interface.  Each source compiles in its own nvcc process, all started
+together, and one more call links them:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o libsrt_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler \\
+         -fPIC -Xptxas=-v -c csrc/<name>.cu -o <name>.o       (in parallel)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libsrt_kernels.so *.o
 
 No `--use_fast_math`: flush-to-zero would flush tiny unit-vector
 components, and the certificate's error bound assumes round-to-nearest
@@ -12,8 +15,9 @@ fp32 (see ops/fused_topk.BF16X2_EPS).
 
 The library is built at first use into `spotify_recommender_tpu_torch/
 _build/<hash of the sources>/`, so a fresh checkout builds it on the first
-kernel launch and an edited source rebuilds it.  A missing nvcc or a failed
-build raises; nothing falls back.
+kernel launch and an edited source rebuilds it; `nvcc.log` beside the
+library keeps ptxas's report of each kernel's registers and spills.  A
+missing nvcc or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -30,10 +34,10 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
 LIB_NAME = "libsrt_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+LOG_NAME = "nvcc.log"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -41,15 +45,20 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 # C entry points: name -> argtypes (each returns cudaGetLastError() as int)
 _SIGNATURES = {
-    # q, qn, ft, ft_sd, ft_sc, cn, excl, b, f, np, valid, k, exact, eps,
-    # nsplit, split_cols, pv, pc, ov, oi, stream
+    # q, qn, ft, ft_sd, ft_sc, cn, excl, b, fq, fc, np, valid, k, exact,
+    # bf16, eps, nsplit, split_cols, pv, pc, ov, oi, stream
     "srt_fused_topk": (_P, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64,
-                       _I64, _I64, _I64, _F32, _I64, _I64, _P, _P, _P, _P,
-                       _P),
+                       _I64, _I64, _I64, _I64, _I64, _F32, _I64, _I64, _P,
+                       _P, _P, _P, _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
-    # q2, b, f, ft, ft_stride, np, depth, topc, ov, oi, ob, stream
-    "srt_scan_v3": (_P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _P, _P, _P, _P),
+    # q2, b, f, ft, ft_stride, np, w, depth, topc, ov, oi, ob, stream
+    "srt_scan_v3": (_P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I32, _P, _P,
+                    _P, _P),
+    # q2, qn, b, f, ft, ft_stride, cn, np, excl, valid, eps, w, topc, ov,
+    # oi, ob, stream
+    "srt_scan_v2": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _P, _I64, _F32,
+                    _I32, _I32, _P, _P, _P, _P),
 }
 
 
@@ -59,7 +68,7 @@ def sources() -> list:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -87,20 +96,34 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    # build to a private name, then rename: a concurrent build never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
+    # build in a private directory, then rename: a concurrent build never
+    # sees a half-written library
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in sources()]
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
+                    for src, obj in zip(sources(), objs)])
+        so = str(Path(tmp) / LIB_NAME)
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]])
+        (out_dir / LOG_NAME).write_text(log)
+        os.replace(so, lib)
     return lib
+
+
+def _run(cmds: list) -> str:
+    """Run the commands at once and wait for all; returns their output
+    (ptxas's register and spill report), or raises if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [
+        f"nvcc failed ({p.returncode}):\n{' '.join(c)}\n{out}"
+        for c, p, out in zip(cmds, procs, outs) if p.returncode != 0
+    ]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,23 +1,29 @@
-"""Kernel 3: fused exact cosine score + top-k over an fp32 catalog.
+"""Kernel 3: fused cosine score + top-k over an fp32, bf16 or bf16x2
+catalog.
 
 `fused_topk(queries, q_norms, features_t, norms, excl, valid, k=, exact=)`
 scores a query batch against the transposed catalog and returns each
 query's top-k:
 
-    queries     (B, F) f32 contiguous (unit rows when exact=False)
+    queries     (B, Fq) contiguous, of features_t's dtype (unit rows when
+                exact=False)
     q_norms     (B,) f32, the RAW query norms (similarity.row_norms)
-    features_t  (F, Np) f32, any strides (a `.t()` view of row-major
-                rows works in place)
+    features_t  (Fc, Np) f32 or bf16, any strides (a `.t()` view of
+                row-major rows works in place)
     norms       (Np,) f32, zero on pad columns
     excl        (B,) int64 column to skip per query, -1 = none
     valid       columns >= valid are padding
     out         (B, k) f32 descending, lowest column first on equal values,
                 and (B, k) int64 columns; unfilled slots are (-inf, -1)
 
+Storage: fp32 (Fq = Fc), bf16 (Fq = Fc, prenormalized only), or bf16x2:
+queries [qh, ql, ql, qh] (Fq = 4F) against planes [hi; lo] (Fc = 2F) or
+[hi; lo; hi; lo] (Fc = 4F), catalog row d mod Fc for query column d.
 Score: `guard = qn*cn > eps`; exact `guard ? clamp(dot / (qn*cn), -1, 1)
 : 0`, prenormalized `guard ? clamp(dot, -1, 1) : 0`, with `dot` summed
-over ascending d, one rounding per multiply and per add.  This is what the
-TPU kernel `_fused_kernel` (spotify_recommender_tpu/ops/pallas/
+over ascending d in fp32, one rounding per multiply and per add (a
+product of two bf16 values is exact, as on the TPU's MXU).  This is what
+the TPU kernel `_fused_kernel` (spotify_recommender_tpu/ops/pallas/
 fused_topk.py:52) computes.
 
 On a CUDA tensor `fused_topk` launches the hand-written kernel
@@ -46,16 +52,24 @@ _BLOCKS_PER_SM = 4        # resident blocks of 128 threads the grid aims at
 PLAIN_CHUNK_ELEMS = 1 << 26   # (B x columns) per chunk of the plain version
 
 
-def _check_args(queries, q_norms, features_t, norms, excl, k) -> None:
-    tensors = (queries, q_norms, features_t, norms)
-    if any(t.dtype != torch.float32 for t in tensors) or excl.dtype != torch.int64:
+def _check_args(queries, q_norms, features_t, norms, excl, k, exact) -> None:
+    bf16 = features_t.dtype == torch.bfloat16
+    if (features_t.dtype not in (torch.float32, torch.bfloat16)
+            or queries.dtype != features_t.dtype
+            or q_norms.dtype != torch.float32 or norms.dtype != torch.float32
+            or excl.dtype != torch.int64):
         raise TypeError(
-            "fused_topk takes float32 queries, norms and catalog and int64 "
-            f"excl, got {[t.dtype for t in tensors]}, {excl.dtype}"
+            "fused_topk takes float32 or bfloat16 queries and catalog of one "
+            "dtype, float32 norms and int64 excl, got "
+            f"{[t.dtype for t in (queries, q_norms, features_t, norms, excl)]}"
         )
-    b, f = queries.shape
+    if bf16 and exact:
+        raise ValueError("fused_topk: bfloat16 storage takes prenormalized "
+                         "rows (exact=False)")
+    b, fq = queries.shape
     if (q_norms.shape != (b,) or excl.shape != (b,) or features_t.dim() != 2
-            or features_t.shape[0] != f
+            or fq not in ((features_t.shape[0], 2 * features_t.shape[0])
+                          if bf16 else (features_t.shape[0],))
             or norms.shape != (features_t.shape[1],)):
         raise ValueError(
             f"fused_topk: queries {tuple(queries.shape)}, q_norms "
@@ -80,19 +94,21 @@ def fused_topk_plain(
     exact: bool,
     eps: float = COSINE_EPS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    b, f = queries.shape
-    np_ = features_t.shape[1]
+    b, fq = queries.shape
+    fc, np_ = features_t.shape
     dev = queries.device
+    queries = queries.float()      # bf16 values are exact in fp32
     best_s = torch.full((b, k), float("-inf"), device=dev)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
     step = max(1, PLAIN_CHUNK_ELEMS // max(b, 1))
     for off in range(0, np_, step):
         end = min(off + step, np_)
-        ft = features_t[:, off:end]
-        # the kernel's chain: one rounding per multiply and per add
+        ft = features_t[:, off:end].float()
+        # the kernel's chain: one rounding per multiply and per add; query
+        # column d meets catalog row d mod Fc
         dots = queries[:, 0:1] * ft[0:1]
-        for d in range(1, f):
-            dots = dots + queries[:, d:d + 1] * ft[d:d + 1]
+        for d in range(1, fq):
+            dots = dots + queries[:, d:d + 1] * ft[d % fc:d % fc + 1]
         den = q_norms[:, None] * norms[None, off:end]
         guard = den > eps
         x = dots / torch.where(guard, den, 1.0) if exact else dots
@@ -131,7 +147,7 @@ def fused_topk(
     exact: bool,
     eps: float = COSINE_EPS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_args(queries, q_norms, features_t, norms, excl, k)
+    _check_args(queries, q_norms, features_t, norms, excl, k, exact)
     tensors = (queries, q_norms, features_t, norms, excl)
     if all(t.device.type == "cpu" for t in tensors):
         return fused_topk_plain(queries, q_norms, features_t, norms, excl,
@@ -142,8 +158,8 @@ def fused_topk(
     if not (queries.is_contiguous() and q_norms.is_contiguous()
             and norms.is_contiguous() and excl.is_contiguous()):
         raise ValueError("fused_topk: queries, norms and excl must be contiguous")
-    b, f = queries.shape
-    np_ = features_t.shape[1]
+    b, fq = queries.shape
+    fc, np_ = features_t.shape
     if np_ >= 2**31 - 1:
         raise ValueError(f"fused_topk: {np_} columns exceed int32 indices")
     ov = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -157,8 +173,9 @@ def fused_topk(
         err = _build.library().srt_fused_topk(
             queries.data_ptr(), q_norms.data_ptr(), features_t.data_ptr(),
             features_t.stride(0), features_t.stride(1), norms.data_ptr(),
-            excl.data_ptr(), b, f, np_, int(valid), k, int(bool(exact)),
-            ctypes.c_float(eps), nsplit, split_cols, pv.data_ptr(),
+            excl.data_ptr(), b, fq, fc, np_, int(valid), k, int(bool(exact)),
+            int(features_t.dtype == torch.bfloat16), ctypes.c_float(eps),
+            nsplit, split_cols, pv.data_ptr(),
             pc.data_ptr(), ov.data_ptr(), oi.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

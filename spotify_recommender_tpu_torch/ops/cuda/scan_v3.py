@@ -18,10 +18,12 @@ what the TPU kernel `_scan_kernel_v3`
 (spotify_recommender_tpu/ops/pallas/fused_topk.py:1069) computes.
 
 On a CUDA tensor `scan_v3` launches the hand-written kernel
-(`csrc/scan_v3.cu`, w = 128 and depth 1-4 only); on a CPU tensor it runs
-`scan_v3_plain`, which sums the same 4F products in the kernel's order:
-on the card the two agree bitwise.  Both read only the [hi; lo] rows of
-`ft` and the [qh, ql] columns of `q2`.
+(`csrc/scan_v3.cu` over `csrc/bin_scan.cuh`: w a multiple of 128 up to
+KERNEL_MAX_BINS, depth 1-4); on a CPU tensor it runs `scan_v3_plain`,
+which sums the same 4F products in the kernel's order: on the card the two
+agree bitwise.  Both read only the [hi; lo] rows of `ft` and the [qh, ql]
+columns of `q2`.  The helpers below are shared with kernel 4's plain
+version (ops/cuda/scan_v2.py).
 """
 
 from __future__ import annotations
@@ -33,77 +35,127 @@ import torch
 from spotify_recommender_tpu_torch.ops.cuda import _build
 from spotify_recommender_tpu_torch.ops.topk import topk_stable
 
-KERNEL_BINS = 128
+KERNEL_MAX_BINS = 1024    # one bin per thread of a block
 KERNEL_MAX_DEPTH = 4
+
+
+def check_kernel_bins(w: int) -> None:
+    """Raise unless the CUDA bin scans take `w` bins."""
+    if w % 128 or not 128 <= w <= KERNEL_MAX_BINS:
+        raise ValueError(
+            f"scan_bins W={w}: the CUDA bin scans take W a multiple of 128 "
+            f"up to {KERNEL_MAX_BINS} (one bin per thread of a block)"
+        )
+
+
+def split_plane_dots(q2: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
+    """(B, Np) fp32 dots of [qh, ql] against [hi; lo], summed as the
+    kernels sum them.  Each product of two bf16 values is exact in fp32,
+    so every step rounds once, as the kernels' FMA does, and the dots are
+    bitwise the kernels'."""
+    f = q2.shape[1] // 4
+    qf, ff = q2[:, :2 * f].float(), ft[:2 * f].float()
+    qh, ql, hi, lo = qf[:, :f], qf[:, f:], ff[:f], ff[f:]
+    dots = torch.zeros((q2.shape[0], ft.shape[1]), dtype=torch.float32,
+                       device=q2.device)
+    for j in range(f):
+        for a, c in ((qh, hi), (ql, lo), (ql, hi), (qh, lo)):
+            dots.addcmul_(a[:, j:j + 1], c[j:j + 1])
+    return dots
+
+
+def bin_structures(
+    scores: torch.Tensor, w: int, depth: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-bin top-`depth` of (B, Np) scores, bin of column c = c mod w:
+    values (B, depth*w) and int32 columns (slot = level*w + bin), empty
+    slots (-inf, -1), and each bin's (depth+1)-th best value (B, w)."""
+    b, np_ = scores.shape
+    nl = np_ // w                                    # columns per bin
+    per_bin = scores.view(b, nl, w).transpose(1, 2)  # (B, w, nl), ascending
+    vals, pos = torch.sort(per_bin, dim=2, descending=True, stable=True)
+    keep = min(depth, nl)
+    bins = torch.arange(w, device=scores.device)
+    sv = torch.full((b, depth, w), float("-inf"), device=scores.device)
+    si = torch.full((b, depth, w), -1, dtype=torch.int32, device=scores.device)
+    sv[:, :keep] = vals[:, :, :keep].transpose(1, 2)
+    si[:, :keep] = (pos[:, :, :keep] * w + bins[:, None]).transpose(1, 2).int()
+    # a -inf (masked) score never enters a bin, as the kernels' strict `>`
+    si[:, :keep].masked_fill_(sv[:, :keep] == float("-inf"), -1)
+    if nl > depth:
+        bound = vals[:, :, depth]
+    else:
+        bound = torch.full((b, w), float("-inf"), device=scores.device)
+    return sv.view(b, depth * w), si.view(b, depth * w), bound
+
+
+def top_slots(
+    sv: torch.Tensor, si: torch.Tensor, bound: torch.Tensor, topc: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The compact output: top-`topc` slots by value descending, slot
+    ascending, and the max bound over the bins (B, 1)."""
+    top_v, slot = topk_stable(sv, topc)
+    return (top_v, torch.gather(si, 1, slot),
+            bound.amax(dim=1, keepdim=True))
 
 
 def scan_v3_plain(
     q2: torch.Tensor, ft: torch.Tensor, *, w: int, depth: int, topc: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    b = q2.shape[0]
-    np_ = ft.shape[1]
-    f = q2.shape[1] // 4
-    qf, ff = q2[:, :2 * f].float(), ft[:2 * f].float()
-    qh, ql, hi, lo = qf[:, :f], qf[:, f:], ff[:f], ff[f:]
-    # the kernel's 4F products in the kernel's order; each product of two
-    # bf16 values is exact in fp32, so every step rounds once, as the
-    # kernel's FMA does, and the dots are bitwise the kernel's
-    dots = torch.zeros((b, np_), dtype=torch.float32, device=q2.device)
-    for j in range(f):
-        for a, c in ((qh, hi), (ql, lo), (ql, hi), (qh, lo)):
-            dots.addcmul_(a[:, j:j + 1], c[j:j + 1])
-    nl = np_ // w                                   # columns per bin
-    per_bin = dots.view(b, nl, w).transpose(1, 2)   # (B, w, nl), ascending
-    vals, pos = torch.sort(per_bin, dim=2, descending=True, stable=True)
-    keep = min(depth, nl)
-    bins = torch.arange(w, device=q2.device)
-    sv = torch.full((b, depth, w), float("-inf"), device=q2.device)
-    si = torch.full((b, depth, w), -1, dtype=torch.int32, device=q2.device)
-    sv[:, :keep] = vals[:, :, :keep].transpose(1, 2)
-    si[:, :keep] = (pos[:, :, :keep] * w + bins[:, None]).transpose(1, 2).int()
-    if nl > depth:
-        bound = vals[:, :, depth].amax(dim=1, keepdim=True)
-    else:
-        bound = torch.full((b, 1), float("-inf"), device=q2.device)
-    top_v, slot = topk_stable(sv.reshape(b, depth * w), topc)
-    return top_v, torch.gather(si.reshape(b, depth * w), 1, slot), bound
+    sv, si, bound = bin_structures(split_plane_dots(q2, ft), w, depth)
+    return top_slots(sv, si, bound, topc)
+
+
+def check_scan_inputs(q2: torch.Tensor, ft: torch.Tensor, w: int,
+                      what: str) -> int:
+    """Types, shapes and, for the kernels, layout; returns F."""
+    if q2.dtype != torch.bfloat16 or ft.dtype != torch.bfloat16:
+        raise TypeError(f"{what} takes bfloat16, got {q2.dtype}, {ft.dtype}")
+    qw = q2.shape[1]
+    rows, np_ = ft.shape
+    f = qw // 4
+    if qw != 4 * f or rows not in (2 * f, 4 * f):
+        raise ValueError(f"{what}: q2 {tuple(q2.shape)} vs ft {tuple(ft.shape)}")
+    if np_ % w:
+        raise ValueError(f"{what}: Np={np_} is not a multiple of w={w}")
+    return f
+
+
+def check_kernel_layout(q2: torch.Tensor, ft: torch.Tensor, w: int,
+                        what: str) -> None:
+    """What the CUDA bin scans need beyond the plain versions: one CUDA
+    device, a W they build, rows they can stage with 16-byte copies."""
+    if q2.device.type != "cuda" or q2.device != ft.device:
+        raise ValueError(f"{what}: devices {q2.device}, {ft.device}")
+    check_kernel_bins(w)
+    if (not q2.is_contiguous() or ft.stride(1) != 1 or ft.stride(0) % 8
+            or ft.data_ptr() % 16):
+        raise ValueError(f"{what}: q2 must be contiguous, ft rows 16-byte aligned")
 
 
 def scan_v3(
     q2: torch.Tensor, ft: torch.Tensor, *, w: int, depth: int, topc: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    if q2.dtype != torch.bfloat16 or ft.dtype != torch.bfloat16:
-        raise TypeError(f"scan_v3 takes bfloat16, got {q2.dtype}, {ft.dtype}")
-    b, qw = q2.shape
-    rows, np_ = ft.shape
-    f = qw // 4
-    if qw != 4 * f or rows not in (2 * f, 4 * f):
-        raise ValueError(f"scan_v3: q2 {tuple(q2.shape)} vs ft {tuple(ft.shape)}")
-    if np_ % w or not 1 <= topc <= depth * w:
-        raise ValueError(f"scan_v3: Np={np_}, w={w}, depth={depth}, topc={topc}")
+    f = check_scan_inputs(q2, ft, w, "scan_v3")
+    if not 1 <= topc <= depth * w:
+        raise ValueError(f"scan_v3: topc={topc} outside 1..depth*w={depth * w}")
     if q2.device.type == "cpu" and ft.device.type == "cpu":
         return scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc)
-    if q2.device.type != "cuda" or q2.device != ft.device:
-        raise ValueError(f"scan_v3: devices {q2.device}, {ft.device}")
-    if w != KERNEL_BINS or not 1 <= depth <= KERNEL_MAX_DEPTH:
+    check_kernel_layout(q2, ft, w, "scan_v3")
+    if not 1 <= depth <= KERNEL_MAX_DEPTH:
         raise ValueError(
-            f"the CUDA scan supports w={KERNEL_BINS} and depth 1-"
-            f"{KERNEL_MAX_DEPTH}, got w={w}, depth={depth}"
-        )
-    # the kernel stages catalog tiles with 16-byte copies
-    if (not q2.is_contiguous() or ft.stride(1) != 1 or ft.stride(0) % 8
-            or ft.data_ptr() % 16):
-        raise ValueError("scan_v3: q2 must be contiguous, ft rows 16-byte aligned")
+            f"the CUDA scan supports depth 1-{KERNEL_MAX_DEPTH}, got {depth}")
+    b = q2.shape[0]
     ov = torch.empty((b, topc), dtype=torch.float32, device=q2.device)
     oi = torch.empty((b, topc), dtype=torch.int32, device=q2.device)
     ob = torch.empty((b, 1), dtype=torch.float32, device=q2.device)
     with torch.cuda.device(q2.device):
         err = _build.library().srt_scan_v3(
-            q2.data_ptr(), b, f, ft.data_ptr(), ft.stride(0), np_, depth,
-            topc, ov.data_ptr(), oi.data_ptr(), ob.data_ptr(),
+            q2.data_ptr(), b, f, ft.data_ptr(), ft.stride(0), ft.shape[1], w,
+            depth, topc, ov.data_ptr(), oi.data_ptr(), ob.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, "scan_v3")
+    _build.check(err, f"scan_v3 (w={w}, depth={depth}, F={f})")
     scan_v3.launches += 1
     return ov, oi, ob
 

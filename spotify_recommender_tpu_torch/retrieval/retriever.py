@@ -14,8 +14,9 @@ Equivalent of the reference's `Recommender` class
 Three backends, chosen from the config; the device is the caller's:
 
 - "certified" (default): the certified exact tier
-  (ops/fused_topk.CertifiedRetriever).  On a CUDA device it launches the
-  hand-written kernels; on the CPU it runs their plain torch versions.
+  (ops/fused_topk.CertifiedRetriever), with the v3 bin scan or, under
+  `RetrievalConfig(scan="v2")`, the v2 scan.  On a CUDA device it launches
+  the hand-written kernels; on the CPU it runs their plain torch versions.
 - "pallas" (`RetrievalConfig(exact_scores=False)`): the fused score +
   top-k kernel over prenormalized fp32 rows (ops/fused_topk.FusedRetriever),
   the JAX package's backend of the same name.

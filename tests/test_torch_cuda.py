@@ -19,6 +19,7 @@ from spotify_recommender_tpu_torch.ops.cuda.fused import (
     fused_topk,
     fused_topk_plain,
 )
+from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import scan_v2, scan_v2_plain
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import scan_v3, scan_v3_plain
 from spotify_recommender_tpu_torch.ops.cuda.split import (
     split_bf16x2,
@@ -27,8 +28,11 @@ from spotify_recommender_tpu_torch.ops.cuda.split import (
 from spotify_recommender_tpu_torch.ops.fused_topk import (
     BF16X2_EPS,
     CertifiedRetriever,
+    FusedRetriever,
+    PrefilterRetriever,
     build_certified_layout,
     layout_to_device,
+    prepare_and_call,
 )
 
 pytestmark = pytest.mark.cuda
@@ -67,10 +71,10 @@ def test_split_bitwise_equals_plain(cuda):
     assert res < 1e-5, res      # ~2^-18 on unit vectors; ~2^-9 if lo were lost
 
 
-def _scan_inputs(cuda, n, b, seed):
+def _scan_inputs(cuda, n, b, seed, config=RetrievalConfig()):
     rng = np.random.default_rng(seed)
     feats = rng.random((n, 12), dtype=np.float32)
-    lay = build_certified_layout(feats, None, RetrievalConfig())
+    lay = build_certified_layout(feats, None, config)
     q = torch.from_numpy(
         feats[rng.integers(0, n, b)]
         + 0.01 * rng.standard_normal((b, 12)).astype(np.float32)
@@ -97,6 +101,46 @@ def test_scan_equals_plain(cuda, depth):
     assert torch.equal(ob, pb)
 
 
+@pytest.mark.parametrize("w,depth", [(256, 2), (256, 3), (384, 3), (512, 2),
+                                     (512, 3), (768, 2), (1024, 2), (1024, 4)])
+def test_scan_wide_bins_equal_plain(cuda, w, depth):
+    """Kernel 1 at the W that `scan_bins` asks for (one bin per thread,
+    fewer queries per block as W grows)."""
+    _, lay, _, q2 = _scan_inputs(cuda, 20011, 40, seed=w + depth)
+    ft = layout_to_device(lay, cuda).ft
+    ov, oi, ob = scan_v3(q2, ft, w=w, depth=depth, topc=32)
+    torch.cuda.synchronize()
+    pv, pi, pb = scan_v3_plain(q2, ft, w=w, depth=depth, topc=32)
+    assert torch.equal(oi, pi) and torch.equal(ov, pv) and torch.equal(ob, pb)
+
+
+@pytest.mark.parametrize("w", [256, 512])
+@pytest.mark.parametrize("topc", [32, 0])
+def test_scan_v2_equals_plain(cuda, w, topc):
+    """Kernel 4, compact and full structures: a ragged catalog, zero and
+    tiny norms, exclusions, B not a multiple of the query tile."""
+    feats, lay, q, q2 = _scan_inputs(cuda, 20011, 40, seed=w + topc,
+                                     config=RetrievalConfig(scan="v2"))
+    dl = layout_to_device(lay, cuda)
+    dl.nrm_row[5] = 0.0
+    dl.nrm_row[6] = 1e-12
+    qn = similarity.row_norms(q)
+    excl = torch.arange(40, device=cuda) * 97 - 1
+    before = scan_v2.launches
+    out = scan_v2(q2, qn, dl.ft, dl.nrm_row, excl, 20011, w=w, eps=1e-8,
+                  topc=topc)
+    torch.cuda.synchronize()
+    assert scan_v2.launches == before + 1
+    plain = scan_v2_plain(q2, qn, dl.ft, dl.nrm_row, excl, 20011, w=w,
+                          eps=1e-8, topc=topc)
+    for o, p in zip(out, plain):          # the kernel's order: bitwise
+        assert torch.equal(o, p)
+    assert out[0].shape == (40, topc or 3 * w)
+    idx = out[1][out[1] >= 0]
+    assert (idx < 20011).all()
+    assert not (out[1] == excl[:, None]).any()
+
+
 def test_scan_error_within_bf16x2_eps(cuda):
     feats, lay, q, q2 = _scan_inputs(cuda, 20011, 40, seed=5)
     ov, oi, _ = scan_v3(q2, layout_to_device(lay, cuda).ft, w=128, depth=2,
@@ -120,6 +164,24 @@ def test_certified_matches_oracle_on_card(cuda):
     rs, ri = similarity.exact_topk_chunked(f[r], f, norms, exclude_rows=r, k=10)
     assert torch.equal(i, ri)
     # rerank (gathered bmm) and oracle (matmul) sum in different orders
+    assert (s - rs).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("config", [RetrievalConfig(scan="v2"),
+                                    RetrievalConfig(scan_bins=512)])
+def test_certified_wide_and_v2_match_oracle_on_card(cuda, config):
+    rng = np.random.default_rng(4)
+    n, b = 30011, 64
+    feats = rng.random((n, 12), dtype=np.float32)
+    rows = rng.integers(0, n, b)
+    cr = CertifiedRetriever(feats, None, config, cuda)
+    assert cr.layout.w == 512
+    s, i = cr(feats[rows], 10, exclude_rows=rows)
+    f = torch.from_numpy(feats).to(cuda)
+    norms = similarity.row_norms(f)
+    r = torch.from_numpy(rows).to(cuda)
+    rs, ri = similarity.exact_topk_chunked(f[r], f, norms, exclude_rows=r, k=10)
+    assert torch.equal(i, ri)
     assert (s - rs).abs().max().item() <= 1e-6
 
 
@@ -172,3 +234,47 @@ def test_fused_topk_rejects_k_above_limit(cuda):
     with pytest.raises(ValueError, match="128"):
         fused_topk(q, similarity.row_norms(q), f.t(), similarity.row_norms(f),
                    excl, 300, k=129, exact=True)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "bfloat16x2"])
+@pytest.mark.parametrize("n,b,k", [(20011, 40, 10), (5000, 1, 100), (50, 3, 64)])
+def test_fused_topk_bf16_bitwise_equals_plain(cuda, dtype, n, b, k):
+    f, q, excl = _fused_inputs(cuda, n, b, seed=n + 1)
+    fr = FusedRetriever(f.cpu().numpy(), None,
+                        RetrievalConfig(dtype=dtype, exact_scores=False), cuda)
+    valid = n - 7
+    before = fused_topk.launches
+    ov, oi = prepare_and_call(q, excl, fr.features_t, fr.norms, valid, k=k,
+                              eps=1e-8, exact=False, dtype=dtype)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    qn = similarity.row_norms(q)
+    qu = q / qn.clamp_min(1e-30)[:, None]
+    if dtype == "bfloat16":
+        qb = qu.to(torch.bfloat16)
+    else:
+        qh, ql = split_bf16x2_plain(qu)
+        qb = torch.cat([qh, ql, ql, qh], dim=1)
+    pv, pi = fused_topk_plain(qb, qn, fr.features_t, fr.norms, excl, valid,
+                              k=k, exact=False)
+    # exact bf16 products added in fp32, in the kernel's order
+    assert torch.equal(oi, pi)
+    assert torch.equal(ov, pv)
+    assert (oi < valid).all()
+
+
+def test_prefilter_recall_on_card(cuda):
+    rng = np.random.default_rng(9)
+    n, b = 30011, 64
+    feats = rng.random((n, 12), dtype=np.float32)
+    rows = rng.integers(0, n, b)
+    pr = PrefilterRetriever(feats, None, None, cuda, prefilter=64)
+    s, i = pr(feats[rows], 10, exclude_rows=rows)
+    f = torch.from_numpy(feats).to(cuda)
+    r = torch.from_numpy(rows).to(cuda)
+    rs, ri = similarity.exact_topk_chunked(f[r], f, similarity.row_norms(f),
+                                           exclude_rows=r, k=10)
+    hits = sum(len(set(a) & set(c)) for a, c in zip(i.tolist(), ri.tolist()))
+    assert hits / (b * 10) >= 0.99
+    agree = i == ri
+    assert (s - rs)[agree].abs().max().item() <= 1e-6

@@ -182,10 +182,15 @@ class TestRetrieverState:
 
     @pytest.mark.parametrize("dtype", ["bfloat16", "bfloat16x2"])
     def test_bf16_storage_not_ported(self, dtype):
+        """bf16 storage cannot give the reference's exact scores: it needs
+        `exact_scores=False`, as in the JAX package (tests/test_torch_bf16.py
+        holds the storage itself)."""
         feats = random_features(100, seed=40)
-        cfg = RetrievalConfig(dtype=dtype, exact_scores=False)
-        with pytest.raises(NotImplementedError, match="item 9"):
+        cfg = RetrievalConfig(dtype=dtype, exact_scores=True)
+        with pytest.raises(ValueError, match="bfloat16"):
             FusedRetriever(feats, None, cfg, CPU)
+        with pytest.raises(ValueError, match="bfloat16"):
+            JFusedRetriever(feats, config=JConfig(dtype=dtype))
 
     def test_k_above_the_kernel_limit_raises(self):
         feats = random_features(300, seed=41)

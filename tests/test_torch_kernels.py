@@ -104,6 +104,34 @@ def test_scan_plain_matches_pallas(depth, topc, planes):
     np.testing.assert_allclose(bound.numpy(), jb, rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("w", [256, 512])
+@pytest.mark.parametrize("depth", [2, 3])
+def test_scan_plain_matches_pallas_wide_bins(w, depth):
+    """W > 128 (`scan_bins`), which the CUDA kernel takes up to 1024: the
+    bin of a column is col mod W in both packages."""
+    b = 16
+    lay, q2 = _scan_case(w + depth, 5000, b, 2)
+    ft = torch.from_numpy(lay.ft).to(torch.bfloat16)
+    v, i, bound = scan_v3(q2, ft, w=w, depth=depth, topc=32)
+    jv, ji, jb = map(np.asarray, _scan_call_v3(
+        jnp.asarray(q2.view(torch.uint16).numpy()).view(jnp.bfloat16),
+        jnp.asarray(lay.ft, jnp.bfloat16),
+        tq=b, tc=1024, w=w, depth=depth, topc=32, interpret=True,
+    ))
+    np.testing.assert_array_equal(i.numpy(), ji)
+    np.testing.assert_allclose(v.numpy(), jv, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(bound.numpy(), jb, rtol=0, atol=1e-6)
+
+
+def test_wide_bin_layout_equals_jax_layout():
+    feats = np.random.default_rng(5).random((5000, 12), dtype=np.float32)
+    for bins in (256, 512, 1024):
+        cfg = {"scan_bins": bins, "catalog_tile": 4096}
+        t = build_certified_layout(feats, None, RetrievalConfig(**cfg))
+        j = jax_layout(feats, None, JConfig(**cfg))
+        assert (t.w, t.np_pad) == (j.w, j.np_pad) == (bins, 8192)
+
+
 def test_scan_empty_slots_and_short_bins():
     """A catalog of one 128-column tile: each bin holds one column, so the
     depth-2 structure has empty slots (-inf, -1) and no bound."""
