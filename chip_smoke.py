@@ -17,10 +17,19 @@ at the benchmark's sizes:
   the phase-6 cell, kernel 4 against its plain version, and kernel 1 at
   W = 512 (`scan_bins=512`) against its plain version and the oracle;
 - phase 11: `FusedRetriever` over bf16 and bf16x2 storage (kernel 3's bf16
-  instances) and `PrefilterRetriever`, at the phase-6 cell.
+  instances) and `PrefilterRetriever`, at the phase-6 cell;
+- phase 12: TPU kernels 9-12 (the prototype bin scans) against their plain
+  versions at 1024 x 1M, and kernels 10-11 also at the 10M x 1024 layout
+  (and B = 1) that `kernel_r3.main` runs them on; then the three
+  experiment paths that run them:
+  `experiments.kernel_r3.main` at 10M x 1024 (and B = 1),
+  `experiments.kernel_ablation_r2e.main` and
+  `experiments.certified_proto.main` at 1M x 1024.
 
-Every phase prints one line; any failure raises and exits non-zero.  The next-to-last line is a JSON object of the kernels (launches
-on the main path, error against the plain version, times); the last line is
+Every phase prints one line; any failure raises and exits non-zero.  The
+next-to-last line is a JSON object of the kernels (launches on the main
+path, error against the plain version, times, the card's bound for the same
+work and, for kernel 3, the nearest PyTorch calls' time); the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -54,9 +63,15 @@ from spotify_recommender_tpu_torch.core.device import (  # noqa: E402
     device_info,
     nvidia_smi,
 )
+from spotify_recommender_tpu_torch.core.timing import sync_ms  # noqa: E402
 from spotify_recommender_tpu_torch.data.catalog import Catalog  # noqa: E402
+from spotify_recommender_tpu_torch.experiments import (  # noqa: E402
+    certified_proto,
+    kernel_ablation_r2e,
+    kernel_r3,
+)
 from spotify_recommender_tpu_torch.ops import similarity  # noqa: E402
-from spotify_recommender_tpu_torch.ops.cuda import _build  # noqa: E402
+from spotify_recommender_tpu_torch.ops.cuda import _build, proto_scans  # noqa: E402
 from spotify_recommender_tpu_torch.ops.cuda.fused import (  # noqa: E402
     fused_topk,
     fused_topk_plain,
@@ -100,26 +115,19 @@ TOL_EXACT, TOL_FAST = 1e-6, 1e-5
 TOL_BF16 = 2 * 2.0**-8 + 1e-6
 PALLAS = "spotify_recommender_tpu/ops/pallas/fused_topk.py"
 CSRC = "spotify_recommender_tpu_torch/csrc"
+# an H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W): the
+# bound of a kernel is the larger of its operations over the peak for its
+# inputs' type and its bytes (each input read once, each output written
+# once) over the memory rate
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+HBM_BYTES_PER_S = 3.35e12
+R3_N = 10_000_000          # kernel_r3.main's catalog
+PLAIN_CHUNK = 1 << 20      # columns per chunk of a plain version at R3_N
 
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def sync_ms(fn, reps: int) -> float:
-    """Median milliseconds of `fn()` between CUDA events, after a warm-up."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def _host_ms(fn) -> float:
@@ -176,6 +184,32 @@ def compare_scan(q2, ft, depth, topc, w=128, v2=None):
     check(torch.equal(ki[sep], pi[sep]), f"{what}: indices differ")
     bitwise = torch.equal(kv, pv) and torch.equal(ki, pi) and torch.equal(kb, pb)
     return err, bitwise, (kv, ki, kb)
+
+
+def bound(flops: float, peak: str, *tensors) -> dict:
+    """bound_ms and bound_by of work of `flops` operations at the `peak`
+    rate that reads and writes `tensors` once each."""
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def dot_flops(q: torch.Tensor, ft: torch.Tensor, products: int) -> float:
+    """Two operations per product, `products` per (query, column)."""
+    return 2.0 * q.shape[0] * ft.shape[1] * products
+
+
+def check_bitwise(out, plain, what: str) -> float:
+    """A kernel's outputs bitwise equal to its plain version's; returns
+    the max abs difference of the finite values (0)."""
+    torch.cuda.synchronize()
+    for o, p in zip(out, plain):
+        check(o.shape == p.shape and torch.equal(o, p),
+              f"{what}: kernel differs from plain in "
+              f"{(o != p).sum().item()} entries")
+    return max(finite_diff(o.float(), p.float()) for o, p in zip(out, plain))
 
 
 def finite_diff(a, b) -> float:
@@ -419,6 +453,8 @@ def main() -> None:
         replaces=f"{PALLAS}:237", max_abs_err=split_err,
         ms=sync_ms(lambda: split_bf16x2(qunit), 50),
         plain_ms=sync_ms(lambda: split_bf16x2_plain(qunit), 50),
+        # one subtraction per element; three tensors moved
+        **bound(qunit.numel(), "fp32", qunit, hi, lo), library_ms=None,
     )
     q2 = torch.cat([hi, lo, lo, hi], dim=1)
     ft = cr.layout.ft
@@ -429,6 +465,9 @@ def main() -> None:
         replaces=f"{PALLAS}:1069", max_abs_err=max(err2, err3),
         ms=sync_ms(lambda: scan_v3(q2, ft, w=128, depth=2, topc=32), 10),
         plain_ms=sync_ms(lambda: scan_v3_plain(q2, ft, w=128, depth=2, topc=32), 3),
+        **bound(dot_flops(q2, ft, q2.shape[1]), "bf16", q2, ft,
+                *scan_v3(q2, ft, w=128, depth=2, topc=32)),
+        library_ms=None,
     )
     print(f"kernels at main-path shapes: split {tuple(qunit.shape)} "
           f"{kernels['split_bf16x2']['ms']:.4f} ms vs plain "
@@ -445,6 +484,10 @@ def main() -> None:
                 TOL_FAST),
     }
     line, fused_err, fused_times = [], 0.0, {}
+    # the nearest PyTorch has to kernel 3: two calls, a product and a top-k,
+    # on the prenormalized operands (TF32 off)
+    lib_fp32 = sync_ms(lambda: torch.topk(torch.mm(qunit, modes[False][1]), k),
+                       10)
     for exact, (qq, ft3, tol) in modes.items():
         args = (qq, qn, ft3, n_dev, excl, n)
         kv, ki, err = compare_fused(args, k, exact, f"fused exact={exact}")
@@ -455,6 +498,9 @@ def main() -> None:
         t_1 = sync_ms(lambda: fused_topk(qq[:1], qn[:1], ft3, n_dev, excl[:1],
                                          n, k=k, exact=exact), 50)
         fused_times[exact] = (t_k, t_p)
+        if exact:          # exact products need fp32, outside the tensor cores
+            fused_bound = bound(dot_flops(qq, ft3, ft3.shape[0]), "fp32",
+                                *args[:5], kv, ki)
         line.append(
             f"exact={exact}: bitwise equal to plain; vs oracle max score diff "
             f"{oerr:.3g}, {ties} near-tie positions differ; kernel {t_k:.3f} "
@@ -598,14 +644,16 @@ def main() -> None:
         q2[:64].contiguous(), dl10.ft[:, :m], 3, 0, w=512,
         v2=(qn[:64], dl10.nrm_row[:m], excl[:64], m, 1e-8))
     check(fv.shape == (64, 3 * 512) and fb.shape == (64, 512), "full shapes")
+    v2call = (q2, qn, dl10.ft, dl10.nrm_row, excl, n)
     kernels["scan_v2"] = dict(
         source=f"{CSRC}/scan_v2.cu", replaces=f"{PALLAS}:834",
         max_abs_err=max(err4, errf),
-        ms=sync_ms(lambda: scan_v2(q2, qn, dl10.ft, dl10.nrm_row, excl, n,
-                                   w=512, eps=1e-8, topc=32), 10),
-        plain_ms=sync_ms(lambda: scan_v2_plain(q2, qn, dl10.ft, dl10.nrm_row,
-                                               excl, n, w=512, eps=1e-8,
+        ms=sync_ms(lambda: scan_v2(*v2call, w=512, eps=1e-8, topc=32), 10),
+        plain_ms=sync_ms(lambda: scan_v2_plain(*v2call, w=512, eps=1e-8,
                                                topc=32), 3),
+        **bound(dot_flops(q2, dl10.ft, q2.shape[1]), "bf16", *v2call[:5],
+                *scan_v2(*v2call, w=512, eps=1e-8, topc=32)),
+        library_ms=None,
     )
     launches.update(scan_v2=launches_v2["scan_v2"])
     launches["split_bf16x2"] += launches_v2["split_bf16x2"]
@@ -630,6 +678,9 @@ def main() -> None:
         ms=sync_ms(lambda: scan_v3(q2, ft512, w=512, depth=2, topc=32), 10),
         plain_ms=sync_ms(lambda: scan_v3_plain(q2, ft512, w=512, depth=2,
                                                topc=32), 3),
+        **bound(dot_flops(q2, ft512, q2.shape[1]), "bf16", q2, ft512,
+                *scan_v3(q2, ft512, w=512, depth=2, topc=32)),
+        library_ms=None,
     )
     launches["scan_v3_w512"] = launched512
     batch512 = wall_ms(lambda: r512.retrieve(queries, k=k, exclude_rows=excl), 5)
@@ -671,12 +722,19 @@ def main() -> None:
         else:
             qb = torch.cat([hi, lo, lo, hi], dim=1)
         args = (qb, qn, fr11.features_t, fr11.norms, excl, n)
-        _, _, kerr = compare_fused(args, k, False, f"fused {dtype}")
+        kv, ki, kerr = compare_fused(args, k, False, f"fused {dtype}")
+        lib = None
+        if dtype == "bfloat16":        # a bf16 product and a top-k
+            lib = sync_ms(lambda: torch.topk(torch.mm(qb, fr11.features_t), k),
+                          10)
         kernels[kname] = dict(
             source=f"{CSRC}/fused_topk.cu", replaces=f"{PALLAS}:52",
             max_abs_err=kerr,
             ms=sync_ms(lambda: fused_topk(*args, k=k, exact=False), 20),
             plain_ms=sync_ms(lambda: fused_topk_plain(*args, k=k, exact=False), 3),
+            **bound(dot_flops(qb, fr11.features_t, qb.shape[1]), "bf16",
+                    *args[:5], kv, ki),
+            library_ms=lib,
         )
         t_b = wall_ms(lambda: fr11(queries, k, excl), 20)
         t_1 = wall_ms(lambda: fr11(q1, k, e1), 20)
@@ -710,8 +768,150 @@ def main() -> None:
         source=f"{CSRC}/fused_topk.cu",
         replaces=f"{PALLAS}:52", max_abs_err=fused_err,
         ms=fused_times[True][0], plain_ms=fused_times[True][1],
+        **fused_bound, library_ms=lib_fp32,
     )
     launches["fused_topk"] = fused_launches
+
+    # ---- 12. TPU kernels 9-12 and the three experiment paths that run them
+    t12 = time.perf_counter()
+    # the kernels against their plain versions at 1024 x 1M: kernel_r3's
+    # split layout (qw = 48) and the prototype's [qh, ql] / [hi; lo]
+    # (qw = 24), with the phase-6 queries' norms and self-exclusions
+    q48, ft48 = kernel_r3.split_layout(1 << 20, b, DEV)
+    ft24, nrm24 = certified_proto.layout(feats, norms, DEV)
+    q24 = torch.cat(split_bf16x2_plain(qunit), dim=1)
+    qn1, excl1 = qn[:, None], excl.int()[:, None]
+    errs = {}
+    errs["mxu_only"] = check_bitwise(
+        (proto_scans.mxu_only(q48, ft48),),
+        (proto_scans.mxu_only_plain(q48, ft48),), "mxu_only")
+    for w in (256, 512):
+        single = proto_scans.scan_d1(q48, ft48, w=w)
+        errs["scan_d1"] = max(errs.get("scan_d1", 0.0), check_bitwise(
+            single, proto_scans.scan_d1_plain(q48, ft48, w=w),
+            f"scan_d1 W={w}"))
+        errs["scan_d1_split"] = max(
+            errs.get("scan_d1_split", 0.0),
+            check_bitwise(proto_scans.scan_d1_split(q48, ft48, w=w), single,
+                          f"scan_d1_split W={w} B={b}"),
+            check_bitwise(proto_scans.scan_d1_split(q48[:1], ft48, w=w),
+                          proto_scans.scan_d1(q48[:1], ft48, w=w),
+                          f"scan_d1_split W={w} B=1"))
+        args24 = (q24, qn1, ft24, nrm24, excl1, n)
+        errs["proto_scan"] = max(errs.get("proto_scan", 0.0), check_bitwise(
+            proto_scans.proto_scan(*args24, w=w),
+            proto_scans.proto_scan_plain(*args24, w=w), f"proto_scan W={w}"))
+        del single
+    args3 = (q24, qn1, ft24, nrm24)
+    errs["scan3"] = check_bitwise(proto_scans.scan3(*args3),
+                                  proto_scans.scan3_plain(*args3), "scan3")
+    # and at the shapes kernel_r3.main gives them: its 10M layout (the same
+    # seed), W = 512, B = 1024 and, for both scan_d1 schedules, B = 1; the
+    # plain versions run in column chunks of 1M (the max over chunks, and
+    # the chunks' depth-1 structures merged in column order)
+    q10, ft10 = kernel_r3.split_layout(R3_N, b, DEV)
+    mxu_ref = torch.stack([
+        proto_scans.mxu_only_plain(q10, ft10[:, c:c + PLAIN_CHUNK])
+        for c in range(0, ft10.shape[1], PLAIN_CHUNK)]).amax(0)
+    errs["mxu_only"] = max(errs["mxu_only"], check_bitwise(
+        (proto_scans.mxu_only(q10, ft10),), (mxu_ref,), f"mxu_only {R3_N}"))
+    for qq in (q10, q10[:1]):
+        ref = proto_scans.scan_d1_split_plain(qq, ft10, w=kernel_r3.W,
+                                              slice_=PLAIN_CHUNK)
+        for name in ("scan_d1", "scan_d1_split"):
+            errs[name] = max(errs[name], check_bitwise(
+                getattr(proto_scans, name)(qq, ft10, w=kernel_r3.W), ref,
+                f"{name} N={R3_N} B={qq.shape[0]}"))
+    del q10, ft10, mxu_ref, ref
+    t_cmp10 = time.perf_counter() - t12
+    calls = {   # name: (line replaced, kernel, plain, query, planes, inputs)
+        "mxu_only": ("kernel_r3.py:53", lambda: proto_scans.mxu_only(q48, ft48),
+                     lambda: proto_scans.mxu_only_plain(q48, ft48),
+                     q48, ft48, (q48, ft48)),
+        "scan_d1": ("kernel_r3.py:151",
+                    lambda: proto_scans.scan_d1(q48, ft48, w=512),
+                    lambda: proto_scans.scan_d1_plain(q48, ft48, w=512),
+                    q48, ft48, (q48, ft48)),
+        "scan_d1_split": ("kernel_r3.py:151",
+                          lambda: proto_scans.scan_d1_split(q48, ft48, w=512),
+                          lambda: proto_scans.scan_d1_split_plain(q48, ft48,
+                                                                  w=512),
+                          q48, ft48, (q48, ft48)),
+        "scan3": ("kernel_ablation_r2e.py:26",
+                  lambda: proto_scans.scan3(*args3),
+                  lambda: proto_scans.scan3_plain(*args3), q24, ft24, args3),
+        "proto_scan": ("certified_proto.py:18",
+                       lambda: proto_scans.proto_scan(*args24, w=512),
+                       lambda: proto_scans.proto_scan_plain(*args24, w=512),
+                       q24, ft24, args24[:5]),
+    }
+    for name, (line_, fn, plain_fn, qq, ftq, inputs) in calls.items():
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        kernels[name] = dict(
+            source=f"{CSRC}/proto_scans.cu", replaces=f"experiments/{line_}",
+            max_abs_err=errs[name], ms=sync_ms(fn, 10),
+            plain_ms=sync_ms(plain_fn, 2),
+            **bound(dot_flops(qq, ftq, qq.shape[1]), "bf16", *inputs, *out),
+            library_ms=None,
+        )
+    del q48, ft48, ft24, nrm24, calls, args3, args24
+    t_cmp = time.perf_counter() - t12
+
+    # the three paths, each with its kernels' counts set to 0 just before
+    quiet = io.StringIO()
+    for fn in (proto_scans.mxu_only, proto_scans.scan_d1,
+               proto_scans.scan_d1_split):
+        fn.launches = 0
+    with contextlib.redirect_stdout(quiet):
+        r3 = kernel_r3.main(n=R3_N, b=b, device=DEV, reps=5)
+    for fn in (proto_scans.mxu_only, proto_scans.scan_d1,
+               proto_scans.scan_d1_split):
+        launches[fn.__name__] = fn.launches
+    check(r3["split_equal"] == [True, True],
+          f"kernel_r3: scan_d1_split differs from scan_d1 {r3['split_equal']}")
+    proto_scans.scan3.launches = 0
+    with contextlib.redirect_stdout(quiet):
+        r2e = kernel_ablation_r2e.main(n=n, b=b, device=DEV)
+    launches["scan3"] = proto_scans.scan3.launches
+    proto_scans.proto_scan.launches = 0
+    with contextlib.redirect_stdout(quiet):
+        cpr = certified_proto.main(n=n, b=b, device=DEV)
+    launches["proto_scan"] = proto_scans.proto_scan.launches
+    new = ("mxu_only", "scan_d1", "scan_d1_split", "scan3", "proto_scan")
+    check(all(launches[nm] > 0 for nm in new),
+          f"a kernel of the experiment paths did not launch: "
+          f"{ {nm: launches[nm] for nm in new} }")
+    check(all(np.isfinite(v) and v > 0 for v in r2e.values()), f"r2e {r2e}")
+    chk = cpr["check"]
+    check(chk["exact_match"] >= 0.9 * chk["b"]
+          and all(cpr[f"w{w}"]["cert_ok"] > 0 for w in (512, 256)),
+          f"certified_proto: {cpr}")
+    gbps = {nm: r3["catalog_bytes"] / r3[nm] / 1e6
+            for nm in ("mxu_only", "scan_d3_topc", "scan_d1", "scan_d1_split")}
+    print(f"phase 12 prototype scans: kernels vs plain at {b} x 1M bitwise "
+          f"equal (scan_d1 / split / proto_scan at W=256 and 512, split also "
+          f"at B=1; mxu_only W=128; scan3 W=256), and at kernel_r3's "
+          f"{R3_N} x {b} (mxu_only; scan_d1 / split W=512 at B={b} and B=1, "
+          f"plain in 1M-column chunks), in {t_cmp10:.1f} s (with timing "
+          f"{t_cmp:.1f} s); "
+          f"kernel_r3 at N={r3['n']} (Np={r3['np']}) B={b} W=512: "
+          + ", ".join(f"{nm} {r3[nm]:.3f} ms ({b / r3[nm] * 1e3:.0f} q/s, "
+                      f"{gbps[nm]:.1f} GB/s)" for nm in gbps)
+          + f"; B=1 scan_d1 {r3['scan_d1_b1']:.3f} ms, scan_d1_split "
+          f"{r3['scan_d1_split_b1']:.3f} ms; split bitwise equal to the single "
+          f"walk at B={b} and B=1; r2e: "
+          + ", ".join(f"{nm} {v:.3f} ms" for nm, v in r2e.items())
+          + f"; certified_proto at N={n} B={b}: "
+          + ", ".join(f"W={w} {cpr[f'w{w}']['ms']:.3f} ms per batch, "
+                      f"{cpr[f'w{w}']['enqueued_ms']:.3f} ms enqueued, cert_ok "
+                      f"{cpr[f'w{w}']['cert_ok']}/{b}" for w in (512, 256))
+          + f"; oracle check (W={chk['w']}, 40000 x {chk['b']}): "
+          f"{chk['exact_match']}/{chk['b']} exact-match, cert_ok "
+          f"{chk['cert_ok']}/{chk['b']}, mismatches-with-cert-ok "
+          f"{chk['mismatch_cert_ok']}; launches "
+          f"{ {nm: launches[nm] for nm in new} }; "
+          f"{time.perf_counter() - t12:.1f} s")
 
     print(nvidia_smi("name,power.limit").splitlines()[0])
     print(json.dumps({"kernels": [

@@ -14,6 +14,8 @@ Layer map:
 - ``ops``       — torch oracle, top-k merges, the fused and certified tiers
     ``cuda``    — kernel wrappers and the nvcc build (sources in ``csrc/``)
 - ``retrieval`` — catalog index (id/name), Retriever API, streaming tier
+- ``experiments`` — the bin-scan prototypes (TPU kernels 9-12) and the
+  three paths that run them
 - ``cli``       — reference-style flags, `preprocess`, `recommend`, `retrieve`
 """
 

@@ -31,6 +31,7 @@ extern "C" int srt_scan_v2(const void* q2, const void* qn, int64_t b, int f,
                                static_cast<const float*>(cn),
                                static_cast<const int64_t*>(excl), valid, eps};
   const bin_scan::Args a{q2, b, f, ft, ft_stride, np, topc, epi, ov, oi, ob};
-  return bin_scan::dispatch_w<3, true>(a, w,
-                                       static_cast<cudaStream_t>(stream));
+  return bin_scan::dispatch_w<3, bin_scan::Epi::kGuardClipMask,
+                              bin_scan::SplitPlanes>(
+      a, w, static_cast<cudaStream_t>(stream));
 }

@@ -17,14 +17,17 @@ extern "C" int srt_scan_v3(const void* q2, int64_t b, int f, const void* ft,
                            int64_t ft_stride, int64_t np, int w, int depth,
                            int topc, void* ov, void* oi, void* ob,
                            void* stream) {
+  using bin_scan::dispatch_w;
+  using bin_scan::SplitPlanes;
+  constexpr bin_scan::Epi kNone = bin_scan::Epi::kNone;
   const bin_scan::Args a{q2, b, f, ft, ft_stride, np, topc, {}, ov, oi, ob};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (topc < 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (depth) {
-    case 1: return bin_scan::dispatch_w<1, false>(a, w, s);
-    case 2: return bin_scan::dispatch_w<2, false>(a, w, s);
-    case 3: return bin_scan::dispatch_w<3, false>(a, w, s);
-    case 4: return bin_scan::dispatch_w<4, false>(a, w, s);
+    case 1: return dispatch_w<1, kNone, SplitPlanes>(a, w, s);
+    case 2: return dispatch_w<2, kNone, SplitPlanes>(a, w, s);
+    case 3: return dispatch_w<3, kNone, SplitPlanes>(a, w, s);
+    case 4: return dispatch_w<4, kNone, SplitPlanes>(a, w, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

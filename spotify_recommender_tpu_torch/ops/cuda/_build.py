@@ -59,6 +59,17 @@ _SIGNATURES = {
     # oi, ob, stream
     "srt_scan_v2": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _P, _I64, _F32,
                     _I32, _I32, _P, _P, _P, _P),
+    # q, b, qw, ft, ft_stride, np, slice, part, out, stream
+    "srt_mxu_only": (_P, _I64, _I32, _P, _I64, _I64, _I64, _P, _P, _P),
+    # q, b, qw, ft, ft_stride, np, w, ov, oi, ob, stream
+    "srt_scan_d1": (_P, _I64, _I32, _P, _I64, _I64, _I32, _P, _P, _P, _P),
+    # q, b, qw, ft, ft_stride, np, w, slice, wv, wi, wb, ov, oi, ob, stream
+    "srt_scan_d1_split": (_P, _I64, _I32, _P, _I64, _I64, _I32, _I64, _P, _P,
+                          _P, _P, _P, _P, _P),
+    # q, qn, b, qw, ft, ft_stride, cn, np, excl, valid, eps, w, ov, oi, ob,
+    # stream
+    "srt_proto_scan": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _P, _I64, _F32,
+                       _I32, _P, _P, _P, _P),
 }
 
 

@@ -83,7 +83,7 @@ def bin_structures(
     # a -inf (masked) score never enters a bin, as the kernels' strict `>`
     si[:, :keep].masked_fill_(sv[:, :keep] == float("-inf"), -1)
     if nl > depth:
-        bound = vals[:, :, depth]
+        bound = vals[:, :, depth].clone()   # not a view holding `vals`
     else:
         bound = torch.full((b, w), float("-inf"), device=scores.device)
     return sv.view(b, depth * w), si.view(b, depth * w), bound

@@ -48,12 +48,13 @@ TPU or on XLA (also listed in ROADMAP.md section 3):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
+from spotify_recommender_tpu_torch.core.device import resolve_device
 from spotify_recommender_tpu_torch.core.logging import get_logger
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.cuda.fused import fused_topk
@@ -282,11 +283,13 @@ def fused_score_topk(
     k: int = 10,
     exclude_rows=None,
     config: Optional[RetrievalConfig] = None,
-    device: torch.device = torch.device("cpu"),
+    device: Union[str, torch.device] = "cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One-shot convenience wrapper (builds the layout per call; hold a
-    FusedRetriever for repeated queries against one catalog)."""
-    fr = FusedRetriever(np.asarray(features), norms, config, device)
+    FusedRetriever for repeated queries against one catalog).  Runs on the
+    card unless `device` names the CPU; no card raises."""
+    fr = FusedRetriever(np.asarray(features), norms, config,
+                        resolve_device(device))
     return fr(queries, k, exclude_rows)
 
 

@@ -15,6 +15,7 @@ import torch
 
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.ops import similarity
+from spotify_recommender_tpu_torch.ops.cuda import proto_scans
 from spotify_recommender_tpu_torch.ops.cuda.fused import (
     fused_topk,
     fused_topk_plain,
@@ -278,3 +279,96 @@ def test_prefilter_recall_on_card(cuda):
     assert hits / (b * 10) >= 0.99
     agree = i == ri
     assert (s - rs)[agree].abs().max().item() <= 1e-6
+
+
+def _proto_inputs(cuda, n, b, width, seed, data="unit"):
+    """The prototypes' inputs on the card: unit split planes of uniform
+    rows (width 24: [qh, ql] against [hi; lo]; 48: [qh, ql, ql, qh]
+    against [hi; lo; hi; lo]) or standard-normal planes, with raw norms."""
+    rng = np.random.default_rng(seed)
+    feats = rng.random((n, 12), dtype=np.float32)
+    feats[3] = 0.0
+    norms = np.linalg.norm(feats, axis=1).astype(np.float32)
+    hi, lo = split_bf16x2_plain(torch.from_numpy(
+        feats / np.maximum(norms, 1e-30)[:, None]))
+    qr = feats[rng.integers(0, n, b)]
+    qn = np.linalg.norm(qr, axis=1).astype(np.float32)
+    qh, ql = split_bf16x2_plain(torch.from_numpy(qr / qn[:, None]))
+    if width == 24:
+        q, ft = torch.cat([qh, ql], 1), torch.cat([hi, lo], 1).t()
+    else:
+        q, ft = torch.cat([qh, ql, ql, qh], 1), torch.cat([hi, lo, hi, lo],
+                                                          1).t()
+    if data == "normal":
+        q = torch.from_numpy(rng.standard_normal(
+            (b, width), dtype=np.float32)).to(torch.bfloat16)
+        ft = torch.from_numpy(rng.standard_normal(
+            (width, n), dtype=np.float32)).to(torch.bfloat16)
+    return (q.contiguous().to(cuda), ft.contiguous().to(cuda),
+            torch.from_numpy(qn).to(cuda), torch.from_numpy(norms).to(cuda))
+
+
+@pytest.mark.parametrize("data", ["unit", "normal"])
+def test_mxu_only_bitwise_equals_plain(cuda, data):
+    q, ft, _, _ = _proto_inputs(cuda, 20480, 40, 48, 1, data)
+    before = proto_scans.mxu_only.launches
+    out = proto_scans.mxu_only(q, ft)
+    torch.cuda.synchronize()
+    assert proto_scans.mxu_only.launches == before + 1
+    assert torch.equal(out, proto_scans.mxu_only_plain(q, ft))
+
+
+@pytest.mark.parametrize("data", ["unit", "normal"])
+@pytest.mark.parametrize("w", [128, 256, 512, 1024])
+def test_scan_d1_bitwise_equals_plain(cuda, data, w):
+    q, ft, _, _ = _proto_inputs(cuda, 20480, 40, 48, w, data)
+    before = proto_scans.scan_d1.launches
+    out = proto_scans.scan_d1(q, ft, w=w)
+    torch.cuda.synchronize()
+    assert proto_scans.scan_d1.launches == before + 1
+    for o, p in zip(out, proto_scans.scan_d1_plain(q, ft, w=w)):
+        assert torch.equal(o, p)
+
+
+@pytest.mark.parametrize("b", [1, 64])
+@pytest.mark.parametrize("w", [256, 512])
+def test_scan_d1_split_equals_single_walk(cuda, b, w):
+    """The catalog split and its merge against the single walk and the
+    plain versions, bitwise; duplicated columns tie across slices."""
+    q, ft, _, _ = _proto_inputs(cuda, 1 << 18, b, 48, b + w)
+    ft[:, 1 << 17:(1 << 17) + 4096] = ft[:, :4096]
+    before = proto_scans.scan_d1_split.launches
+    split = proto_scans.scan_d1(q, ft, w=w, invert=True)
+    torch.cuda.synchronize()
+    assert proto_scans.scan_d1_split.launches == before + 1
+    single = proto_scans.scan_d1(q, ft, w=w)
+    for s, o, p, pp in zip(split, single,
+                           proto_scans.scan_d1_plain(q, ft, w=w),
+                           proto_scans.scan_d1_split_plain(q, ft, w=w)):
+        assert torch.equal(s, o) and torch.equal(s, p) and torch.equal(s, pp)
+
+
+def test_scan3_bitwise_equals_plain(cuda):
+    q, ft, qn, cn = _proto_inputs(cuda, 20480, 40, 24, 3)
+    cn[5] = 1e-12                                   # guarded: scores 0
+    before = proto_scans.scan3.launches
+    out = proto_scans.scan3(q, qn[:, None], ft, cn[None, :])
+    torch.cuda.synchronize()
+    assert proto_scans.scan3.launches == before + 1
+    for o, p in zip(out, proto_scans.scan3_plain(q, qn, ft, cn)):
+        assert torch.equal(o, p)
+
+
+@pytest.mark.parametrize("w", [256, 512])
+def test_proto_scan_bitwise_equals_plain(cuda, w):
+    n, b, valid = 20480, 40, 20011
+    q, ft, qn, cn = _proto_inputs(cuda, n, b, 24, w)
+    excl = (torch.arange(b, device=cuda, dtype=torch.int32) * 97 - 1)[:, None]
+    before = proto_scans.proto_scan.launches
+    out = proto_scans.proto_scan(q, qn, ft, cn, excl, valid, w=w)
+    torch.cuda.synchronize()
+    assert proto_scans.proto_scan.launches == before + 1
+    plain = proto_scans.proto_scan_plain(q, qn, ft, cn, excl, valid, w=w)
+    for o, p in zip(out, plain):
+        assert torch.equal(o, p)
+    assert (out[1] < valid).all() and not (out[1] == excl).any()

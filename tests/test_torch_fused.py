@@ -53,7 +53,8 @@ def both(q, feats, k, excl=None, exact=True, jcfg=None):
         exclude_rows=None if excl is None else jnp.asarray(excl, jnp.int32),
     )
     ts, ti = fused_score_topk(q, feats, k=k, exclude_rows=excl,
-                              config=RetrievalConfig(exact_scores=exact))
+                              config=RetrievalConfig(exact_scores=exact),
+                              device=CPU)
     return (np.asarray(js), np.asarray(ji)), (ts.numpy(), ti.numpy())
 
 
@@ -199,6 +200,17 @@ class TestRetrieverState:
             fr(feats[:2], KERNEL_MAX_K + 1)
         s, i = fr(feats[:2], KERNEL_MAX_K)
         assert s.shape == i.shape == (2, KERNEL_MAX_K)
+
+    def test_one_shot_wrapper_runs_on_the_card_by_default(self):
+        """`fused_score_topk` without a device asks for CUDA: on a card its
+        results lie there; without one it raises (no CPU fallback)."""
+        feats = random_features(200, seed=42)
+        if torch.cuda.is_available():
+            s, i = fused_score_topk(feats[:2], feats, k=3)
+            assert s.device.type == "cuda" and i.device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                fused_score_topk(feats[:2], feats, k=3)
 
     def test_wrapper_rejects_bad_inputs(self):
         q = torch.zeros((2, 12))

@@ -1,5 +1,8 @@
-"""The port stands without JAX: no module of it imports jax."""
+"""The port stands without JAX: no module of it, and not chip_smoke.py,
+imports jax, the JAX package `spotify_recommender_tpu` or the repo's
+`experiments/`."""
 
+import ast
 import pathlib
 import subprocess
 import sys
@@ -11,10 +14,13 @@ import torch
 from spotify_recommender_tpu_torch.core.device import device_info, resolve_device
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "spotify_recommender_tpu_torch"
+SOURCES = [*sorted(PKG.rglob("*.py")), PKG.parent / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "spotify_recommender_tpu", "experiments")
 
 _SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
-    sys.modules["jax"] = None          # any `import jax` now raises
+    for name in ("jax", "spotify_recommender_tpu", "experiments"):
+        sys.modules[name] = None       # any import of these now raises
     import numpy as np, torch
     import spotify_recommender_tpu_torch as pkg
     for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -44,11 +50,30 @@ def test_port_imports_and_retrieves_without_jax():
 
 def test_no_source_file_imports_jax():
     offenders = [
-        str(p) for p in PKG.rglob("*.py")
+        str(p) for p in SOURCES
         if any(line.strip().startswith(("import jax", "from jax"))
                for line in p.read_text().splitlines())
     ]
     assert offenders == []
+
+
+def imported_modules(path: pathlib.Path):
+    """Every absolute module name an import statement of `path` names."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_file_imports_the_jax_package_or_experiments():
+    assert len(SOURCES) > 30 and SOURCES[-1].exists()
+    offenders = {
+        f"{p.relative_to(PKG.parent)}: {name}"
+        for p in SOURCES for name in imported_modules(p)
+        if name.split(".")[0] in FORBIDDEN
+    }
+    assert offenders == set()
 
 
 def test_device_resolution_names_the_device():
