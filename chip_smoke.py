@@ -24,12 +24,18 @@ at the benchmark's sizes:
   experiment paths that run them:
   `experiments.kernel_r3.main` at 10M x 1024 (and B = 1),
   `experiments.kernel_ablation_r2e.main` and
-  `experiments.certified_proto.main` at 1M x 1024.
+  `experiments.certified_proto.main` at 1M x 1024;
+- phase 13: TPU kernels 5-8 (kernel 3's round-2 ablation bodies): every
+  case of the four launchers against its plain version, outputs and
+  per-tile digest (NaN-aware), on its main's inputs (1024 queries, 1M
+  rows, the case's tc), then the four mains
+  `experiments.kernel_ablation_r2{,b,c,d}.main` at 1M x 1024.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
 next-to-last line is a JSON object of the kernels (launches on the main
 path, error against the plain version, times, the card's bound for the same
-work and, for kernel 3, the nearest PyTorch calls' time); the last line is
+work, which every time must reach, and the nearest PyTorch call's time);
+the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -67,11 +73,19 @@ from spotify_recommender_tpu_torch.core.timing import sync_ms  # noqa: E402
 from spotify_recommender_tpu_torch.data.catalog import Catalog  # noqa: E402
 from spotify_recommender_tpu_torch.experiments import (  # noqa: E402
     certified_proto,
+    kernel_ablation_r2,
+    kernel_ablation_r2b,
+    kernel_ablation_r2c,
+    kernel_ablation_r2d,
     kernel_ablation_r2e,
     kernel_r3,
 )
 from spotify_recommender_tpu_torch.ops import similarity  # noqa: E402
-from spotify_recommender_tpu_torch.ops.cuda import _build, proto_scans  # noqa: E402
+from spotify_recommender_tpu_torch.ops.cuda import (  # noqa: E402
+    _build,
+    ablation,
+    proto_scans,
+)
 from spotify_recommender_tpu_torch.ops.cuda.fused import (  # noqa: E402
     fused_topk,
     fused_topk_plain,
@@ -241,6 +255,29 @@ def compare_oracle(s, i, rs, ri, tol: float, what: str) -> Tuple[float, int]:
     return err, int((i != ri).sum().item())
 
 
+def ablation_body(mod, name):
+    """The ops/cuda/ablation.Body of an ablation path's case; None for
+    full_r1 (kernel 3)."""
+    entry = (mod.CASES if hasattr(mod, "CASES") else mod.KERNELS)[name]
+    entry = entry[0] if isinstance(entry, tuple) else entry
+    return entry if isinstance(entry, ablation.Body) else None
+
+
+def library_mm(q, ft):
+    """(ms, call) of torch.mm of a body's operands, the dot every ablation
+    body shares: fp32 with TF32 off; bf16 into fp32 where this torch's
+    torch.mm takes `out_dtype`, else the fp32 upcast."""
+    if q.dtype == torch.float32:
+        return sync_ms(lambda: torch.mm(q, ft), 10), "torch.mm(q, ft) fp32"
+    try:
+        torch.mm(q[:1], ft[:, :128], out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return (sync_ms(lambda: torch.mm(q.float(), ft.float()), 10),
+                "torch.mm(q.float(), ft.float())")
+    return (sync_ms(lambda: torch.mm(q, ft, out_dtype=torch.float32), 10),
+            "torch.mm(q, ft, out_dtype=torch.float32)")
+
+
 def compare_fused(args, k, exact, what):
     """Kernel 3 vs its plain version on the same inputs: bitwise."""
     kv, ki = fused_topk(*args, k=k, exact=exact)
@@ -300,6 +337,103 @@ def check_recommendations(text: str, cat: Catalog, row: int, n: int) -> None:
     # printed with 6 decimals: rounding 5e-7 plus rerank-vs-oracle 1e-6
     check(np.allclose(scores, rs[0].cpu().numpy(), rtol=0, atol=1.5e-6),
           f"cli scores {scores} vs oracle {rs[0].tolist()}")
+
+
+def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
+    """Phase 13: TPU kernels 5-8 (kernel 3's round-2 ablation bodies) and
+    the four experiment paths that run them, at their mains' n x b; adds
+    each body's kernels-line entry and launches."""
+    t13 = time.perf_counter()
+    similarity.disable_tf32()
+    paths = {"r2": kernel_ablation_r2, "r2b": kernel_ablation_r2b,
+             "r2c": kernel_ablation_r2c, "r2d": kernel_ablation_r2d}
+    # every case against its plain version on its main's inputs: outputs
+    # and per-tile digest, NaN-aware; the first case of each body is kept
+    # for its kernels-line entry
+    first, n13, nan13 = {}, 0, []
+    for key, mod in paths.items():
+        for name, call in mod.cases(n=n, b=b, device=DEV):
+            body = ablation_body(mod, name)
+            if body is None:                    # full_r1: kernel 3
+                err = check_bitwise(call(), call(plain=True), f"{key} {name}")
+                bname = f"{key}.{name}"
+            else:
+                out, plain = call(digest=True), call(digest=True, plain=True)
+                torch.cuda.synchronize()
+                flat = [*out[:-1], *out[-1]], [*plain[:-1], *plain[-1]]
+                for o, p in zip(*flat):
+                    check(ablation.nan_equal(o, p), f"{key} {name}: kernel "
+                          f"differs from plain in {(o != p).sum().item()} "
+                          f"entries (NaN-aware)")
+                err = max(finite_diff(o.float(), p.float()) for o, p in zip(*flat))
+                if torch.isnan(out[0]).any():
+                    nan13.append(name)
+                bname = body.name
+            first.setdefault(bname, (key, name, call, err, body))
+            n13 += 1
+    check(n13 == 35 and len(first) == 17, f"{n13} cases, {len(first)} bodies")
+    t_cmp13 = time.perf_counter() - t13
+    lib13 = {}
+    for bname, (key, name, call, err, body) in first.items():
+        q, qn, ft, cn = call.args[:4]
+        inputs = [x for x in call.args if isinstance(x, torch.Tensor)]
+        if bname == "r2.full_r1":
+            out = call()
+            # kernel 3's library entry: a product of unit operands, a top-k
+            qu = q / qn.clamp_min(1e-30)
+            fu = ft / cn.clamp_min(1e-30)
+            lib = sync_ms(lambda: torch.topk(torch.mm(qu, fu), out[0].shape[1]),
+                          10)
+            del qu, fu
+            how = "torch.topk(torch.mm(q/qn, ft/cn), k)"
+        else:
+            out = call(digest=True)
+            out = (*out[:-1], *out[-1])
+            if (q.data_ptr(), ft.data_ptr()) not in lib13:
+                lib13[q.data_ptr(), ft.data_ptr()] = library_mm(q, ft)
+            lib, how = lib13[q.data_ptr(), ft.data_ptr()]
+        kernels[bname] = dict(
+            source=f"{CSRC}/{'fused_topk' if body is None else 'ablation_r2'}.cu",
+            replaces=f"{ablation.R2}:136" if body is None else body.replaces,
+            case=name, max_abs_err=err,
+            ms=sync_ms(call, 10), plain_ms=sync_ms(lambda: call(plain=True), 2),
+            **bound(dot_flops(q, ft, q.shape[1]),
+                    "bf16" if q.dtype == torch.bfloat16 else "fp32",
+                    *inputs, *out),
+            library_ms=lib, library=how,
+        )
+    t_time13 = time.perf_counter() - t13 - t_cmp13
+    # the four paths, each with its kernels' counts set to 0 just before
+    mains13 = {}
+    for key, mod in paths.items():
+        bodies = list(ablation.BODIES[key].values())
+        for body in bodies:
+            body.launches = 0
+        fused_topk.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            mains13[key] = mod.main(n=n, b=b, device=DEV, reps=5)
+        for body in bodies:
+            launches[body.name] = body.launches
+        if key == "r2":
+            launches["r2.full_r1"] = fused_topk.launches
+        check(all(np.isfinite(t) and t > 0 for t in mains13[key].values()),
+              f"{key} main: {mains13[key]}")
+    check(all(launches[nm] > 0 for nm in first),
+          f"a kernel of the ablation paths did not launch: "
+          f"{ {nm: launches[nm] for nm in first} }")
+    print(f"phase 13 ablation bodies: {n13} cases of the four launchers at "
+          f"{b} x {n} bitwise equal to their plain versions, outputs and "
+          f"per-tile digests (NaN-aware; NaN outputs in {nan13}), in "
+          f"{t_cmp13:.1f} s; kernels-line timing {t_time13:.1f} s; "
+          + "; ".join(f"{nm} {kernels[nm]['ms']:.3f} ms (plain "
+                      f"{kernels[nm]['plain_ms']:.1f}, bound "
+                      f"{kernels[nm]['bound_ms']:.3f}, library "
+                      f"{kernels[nm]['library_ms']:.3f})" for nm in first)
+          + "; mains: " + "; ".join(
+              f"{key} " + ", ".join(f"{c} {t:.3f}" for c, t in r.items())
+              for key, r in mains13.items())
+          + f" ms; launches { {nm: launches[nm] for nm in first} }; "
+          f"{time.perf_counter() - t13:.1f} s")
 
 
 def main() -> None:
@@ -723,10 +857,14 @@ def main() -> None:
             qb = torch.cat([hi, lo, lo, hi], dim=1)
         args = (qb, qn, fr11.features_t, fr11.norms, excl, n)
         kv, ki, kerr = compare_fused(args, k, False, f"fused {dtype}")
-        lib = None
         if dtype == "bfloat16":        # a bf16 product and a top-k
             lib = sync_ms(lambda: torch.topk(torch.mm(qb, fr11.features_t), k),
                           10)
+        else:   # [qh, ql, ql, qh] x [hi; lo; hi; lo]: exact products in fp32
+            ft4 = torch.cat([fr11.features_t] * 2)
+            lib = sync_ms(lambda: torch.topk(torch.mm(qb.float(), ft4.float()),
+                                             k), 10)
+            del ft4
         kernels[kname] = dict(
             source=f"{CSRC}/fused_topk.cu", replaces=f"{PALLAS}:52",
             max_abs_err=kerr,
@@ -913,6 +1051,12 @@ def main() -> None:
           f"{ {nm: launches[nm] for nm in new} }; "
           f"{time.perf_counter() - t12:.1f} s")
 
+    # ---- 13. TPU kernels 5-8 and the four experiment paths that run them
+    ablation_phase(n, b, kernels, launches)
+
+    low = {nm: (kv["ms"], kv["bound_ms"]) for nm, kv in kernels.items()
+           if not kv["ms"] >= kv["bound_ms"]}
+    check(not low, f"kernel times under their bound (work dropped?): {low}")
     print(nvidia_smi("name,power.limit").splitlines()[0])
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "launches": launches[nm], **kv}

@@ -70,6 +70,10 @@ _SIGNATURES = {
     # stream
     "srt_proto_scan": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _P, _I64, _F32,
                        _I32, _P, _P, _P, _P),
+    # q, qn, ft, ft_stride, cn, excl, valid, b, f, np, tc, bf16, epi, red,
+    # width, eps, out_s, out_i, dmax, dg, stream
+    "srt_ablation": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I32,
+                     _I32, _I32, _I32, _I32, _F32, _P, _P, _P, _P, _P),
 }
 
 

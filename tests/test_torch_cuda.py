@@ -14,8 +14,14 @@ import pytest
 import torch
 
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
+from spotify_recommender_tpu_torch.experiments import (
+    kernel_ablation_r2,
+    kernel_ablation_r2b,
+    kernel_ablation_r2c,
+    kernel_ablation_r2d,
+)
 from spotify_recommender_tpu_torch.ops import similarity
-from spotify_recommender_tpu_torch.ops.cuda import proto_scans
+from spotify_recommender_tpu_torch.ops.cuda import ablation, proto_scans
 from spotify_recommender_tpu_torch.ops.cuda.fused import (
     fused_topk,
     fused_topk_plain,
@@ -372,3 +378,79 @@ def test_proto_scan_bitwise_equals_plain(cuda, w):
     for o, p in zip(out, plain):
         assert torch.equal(o, p)
     assert (out[1] < valid).all() and not (out[1] == excl).any()
+
+
+# ---- TPU kernels 5-8: every case of the four ablation launchers, at its
+# own tc (to 65,536), its storage and stored F; (launcher, case, body,
+# storage, tc, F stored, index output?, width)
+ABLATION_CASES = [
+    *[("r2", n, kernel_ablation_r2.KERNELS[n], torch.float32,
+       kernel_ablation_r2.TC, 12, True, kernel_ablation_r2.K)
+      for n in ("dotonly", "widemax", "vertmax", "verttop2")],
+    *[("r2b", n, body, dt, kernel_ablation_r2b.TC, 12, True,
+       kernel_ablation_r2b.K)
+      for n, (body, dt) in kernel_ablation_r2b.KERNELS.items()],
+    *[(mod.__name__[-3:], n, body, dt, tc, fs, False, ablation.LANES)
+      for mod in (kernel_ablation_r2c, kernel_ablation_r2d)
+      for n, (body, dt, _, tc, fs, *_) in mod.CASES.items()],
+]
+
+
+def _ablation_args(cuda, b, fs, np_, dtype, seed):
+    """Scaled unit rows whose dots straddle +-1, zero-norm columns, a
+    ragged last tile (zero features and norms: e_div's 0 / 0), exclusions;
+    the padded feature rows zero, as the mains store them."""
+    rng = np.random.default_rng(seed)
+    f = 12 if fs in (12, 16) else 24
+    valid = np_ - 100
+    q = np.zeros((b, fs), np.float32)
+    ft = np.zeros((fs, np_), np.float32)
+    q[:, :f] = rng.standard_normal((b, f))
+    ft[:f] = rng.standard_normal((f, np_))
+    q *= rng.uniform(0.9, 1.4, (b, 1)) / np.linalg.norm(q, axis=1,
+                                                         keepdims=True)
+    ft *= rng.uniform(0.9, 1.4, (1, np_)) / np.linalg.norm(ft, axis=0,
+                                                           keepdims=True)
+    ft[:, rng.integers(0, valid, 40)] = 0.0
+    ft[:, valid:] = 0.0
+    qn = np.linalg.norm(q, axis=1, keepdims=True).astype(np.float32)
+    cn = np.linalg.norm(ft, axis=0, keepdims=True).astype(np.float32)
+    excl = rng.integers(-1, valid, (b, 1)).astype(np.int32)
+    t = [torch.from_numpy(a).to(cuda) for a in (q, qn, ft, cn, excl)]
+    return t[0].to(dtype), t[1], t[2].to(dtype), t[3], t[4], valid
+
+
+@pytest.mark.parametrize(
+    "launcher,name,body,dtype,tc,fs,index,width", ABLATION_CASES,
+    ids=[f"{c[0]}-{c[1]}" for c in ABLATION_CASES])
+def test_ablation_body_bitwise_equals_plain(cuda, launcher, name, body, dtype,
+                                            tc, fs, index, width):
+    """Kernel against plain, outputs and per-tile digest, NaN-aware; B not
+    a multiple of the kernel's 16, two tiles of the case's tc."""
+    args = _ablation_args(cuda, 40, fs, 2 * tc, dtype, seed=tc + fs)
+    before = body.launches
+    *out, dig = body(*args, tc=tc, width=width, index=index, digest=True)
+    torch.cuda.synchronize()
+    assert body.launches == before + 1
+    *pout, pdig = body.plain(*args, tc=tc, width=width, index=index,
+                             digest=True)
+    assert len(out) == (2 if index else 1) and dig[0].shape == (40, 2)
+    for o, p in zip([*out, *dig], [*pout, *pdig]):
+        assert ablation.nan_equal(o, p)
+    if body.name == "r2b.e_div":
+        assert torch.isnan(out[0]).all()
+    else:
+        assert not torch.isnan(dig[0]).any()
+
+
+def test_ablation_full_r1_equals_plain(cuda):
+    """full_r1 is kernel 3 (exact): bitwise its plain version."""
+    args = _ablation_args(cuda, 40, 12, 8192, torch.float32, seed=1)
+    before = fused_topk.launches
+    s, i = kernel_ablation_r2.run_variant(*args, name="full_r1", k=16,
+                                          tc=8192)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == before + 1
+    ps, pi = kernel_ablation_r2.run_variant(*args, name="full_r1", k=16,
+                                            tc=8192, plain=True)
+    assert torch.equal(s, ps) and torch.equal(i, pi) and i.dtype == torch.int32

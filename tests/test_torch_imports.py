@@ -76,6 +76,37 @@ def test_no_source_file_imports_the_jax_package_or_experiments():
     assert offenders == set()
 
 
+ABLATION = ["ops/cuda/ablation.py", "experiments/kernel_ablation_r2.py",
+            "experiments/kernel_ablation_r2b.py",
+            "experiments/kernel_ablation_r2c.py",
+            "experiments/kernel_ablation_r2d.py"]
+
+
+@pytest.mark.parametrize("rel", ABLATION)
+def test_ablation_modules_are_checked_sources(rel):
+    """The ports of TPU kernels 5-8 are among the files the import checks
+    above walk, and import none of the forbidden names."""
+    path = PKG / rel
+    assert path in SOURCES
+    assert not {n for n in imported_modules(path)
+                if n.split(".")[0] in FORBIDDEN}
+
+
+@pytest.mark.parametrize("rel", [r for r in ABLATION if "experiments" in r])
+def test_ablation_mains_default_to_the_card(rel):
+    """Each main runs on the card unless asked for the CPU, and raises
+    where torch sees none."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(
+        "spotify_recommender_tpu_torch." + rel[:-3].replace("/", "."))
+    assert inspect.signature(mod.main).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.main(n=300, b=2)
+
+
 def test_device_resolution_names_the_device():
     cpu = resolve_device("cpu")
     assert cpu == torch.device("cpu")
