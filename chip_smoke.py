@@ -2,20 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `spotify_recommender_tpu_torch/csrc`,
-holds each against its plain torch version on the card, runs the
-reference-style CLI on a 114,000-row catalog, and drives the main paths
-at the benchmark's sizes:
+Builds the port's two CUDA kernel libraries (serving and experiments, at
+once) from `spotify_recommender_tpu_torch/csrc`, holds each kernel against
+its plain torch version on the card, runs the reference-style CLI on a
+114,000-row catalog, and drives the main paths at the benchmark's sizes:
 
 - phase 6: `Retriever.retrieve` (certified exact tier), 1,000,000 x 12
-  items, B = 1024 catalog-row queries with self-exclusion, k = 10;
+  items, B = 1024 catalog-row queries with self-exclusion, k = 10, and
+  B = 1: the answers bitwise the fixed-order oracle's and within 1e-6 of
+  the cuBLAS oracle, fallbacks and escalations per batch, a
+  `torch.profiler` breakdown of a batch; kernel 1 at the batch's depth-2
+  scan, the 32-query depth-3 rescan and B = 1;
 - phase 7: the fused score + top-k kernel at those shapes, both modes;
 - phase 8: the Retriever's "pallas" backend and an exact `FusedRetriever`;
 - phase 9: `StreamingRetriever` over a memory-mapped 4,000,000 x 12
   catalog directory, B = 256, window 1,048,576, and `retrieve --streaming`;
 - phase 10: the certified tier under `scan="v2"` (kernel 4, W = 512) at
-  the phase-6 cell, kernel 4 against its plain version, and kernel 1 at
-  W = 512 (`scan_bins=512`) against its plain version and the oracle;
+  the phase-6 cell and B = 1, kernel 4 against its plain version (B =
+  1024, 32, 1), and kernel 1 at W = 512 (`scan_bins=512`) against its
+  plain version and the oracle;
 - phase 11: `FusedRetriever` over bf16 and bf16x2 storage (kernel 3's bf16
   instances) and `PrefilterRetriever`, at the phase-6 cell;
 - phase 12: TPU kernels 9-12 (the prototype bin scans) against their plain
@@ -45,6 +50,7 @@ package; imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -173,8 +179,9 @@ def split_queries(q: torch.Tensor) -> torch.Tensor:
 
 def compare_scan(q2, ft, depth, topc, w=128, v2=None):
     """Scan kernel vs plain on the same inputs: kernel 1, or kernel 4 with
-    `v2` = (qn, norms, excl, valid, eps).  Returns (max abs error of values
-    and bounds, bitwise equal?, kernel outputs)."""
+    `v2` = (qn, norms, excl, valid, eps); they must be bitwise equal.
+    Returns (max abs error of values and bounds, bitwise equal?, kernel
+    outputs)."""
     if v2 is None:
         kv, ki, kb = scan_v3(q2, ft, w=w, depth=depth, topc=topc)
         pv, pi, pb = scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc)
@@ -197,6 +204,7 @@ def compare_scan(q2, ft, depth, topc, w=128, v2=None):
     sep[:, -1] = False      # the (C+1)-th value is unknown
     check(torch.equal(ki[sep], pi[sep]), f"{what}: indices differ")
     bitwise = torch.equal(kv, pv) and torch.equal(ki, pi) and torch.equal(kb, pb)
+    check(bitwise, f"{what} (B={q2.shape[0]}): not bitwise equal to plain")
     return err, bitwise, (kv, ki, kb)
 
 
@@ -213,6 +221,31 @@ def bound(flops: float, peak: str, *tensors) -> dict:
 def dot_flops(q: torch.Tensor, ft: torch.Tensor, products: int) -> float:
     """Two operations per product, `products` per (query, column)."""
     return 2.0 * q.shape[0] * ft.shape[1] * products
+
+
+def spilling_kernels(log: str) -> list:
+    """`name<template ints> bytes` of each kernel whose ptxas report in an
+    nvcc log shows spill stores."""
+    out, name = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and name and int(m.group(1)):
+            # the innermost name of the mangled _ZN<len><name>... path
+            parts, i = [], 3 if name.startswith("_ZN") else 2
+            while i < len(name) and name[i].isdigit():
+                j = i
+                while name[j].isdigit():
+                    j += 1
+                parts.append(name[j:j + int(name[i:j])])
+                i = j + int(name[i:j])
+            args = ",".join(re.findall(r"Li(\d+)E", name[i:]))
+            out.append(f"{parts[-1] if parts else name[:40]}<{args}> "
+                       f"{m.group(1)}")
+            name = None
+    return out
 
 
 def check_bitwise(out, plain, what: str) -> float:
@@ -253,6 +286,45 @@ def compare_oracle(s, i, rs, ri, tol: float, what: str) -> Tuple[float, int]:
     check(torch.equal(i[sep], ri[sep]),
           f"{what}: {(i[sep] != ri[sep]).sum().item()} separated indices differ")
     return err, int((i != ri).sum().item())
+
+
+def check_certified(s, i, fixed, cublas, what) -> Tuple[float, int]:
+    """A certified batch is bitwise the fixed-order oracle's (`fixed`, its
+    scores and indices), and within TOL_EXACT of the cuBLAS oracle
+    (`cublas`) by `compare_oracle`.  Returns that comparison's (max score
+    error, positions that differ at near-ties)."""
+    fs, fi = fixed
+    check(torch.equal(i, fi), f"{what}: certified indices differ from the "
+          f"fixed-order oracle's in {(i != fi).sum().item()} of {i.numel()}")
+    check(torch.equal(s, fs), f"{what}: certified scores are not the "
+          f"fixed-order oracle's bits")
+    return compare_oracle(s, i, *cublas, TOL_EXACT, what)
+
+
+def profile_batch(fn, reps: int = 3):
+    """(wall ms per call, {kernel: device ms per call}, device idle share)
+    of `fn` under torch.profiler; no kernels where it saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    per = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            name = e.key.split("(")[0].replace("void ", "")[:60]
+            per[name] = per.get(name, 0.0) + us / 1e3 / reps
+    per = dict(sorted(per.items(), key=lambda kv: -kv[1]))
+    return wall, per, max(0.0, 1.0 - sum(per.values()) / wall)
 
 
 def ablation_body(mod, name):
@@ -324,18 +396,20 @@ def run_cli(argv):
 
 
 def check_recommendations(text: str, cat: Catalog, row: int, n: int) -> None:
-    """The CLI's printed ids and scores equal the oracle's on the card."""
+    """The CLI's printed ids and scores equal the certified tier's
+    fixed-order oracle's on the card."""
     ids = re.findall(r"^   ID:     (.*)$", text, flags=re.M)
     scores = [float(s) for s in re.findall(r"^   Score:  (.*)$", text, flags=re.M)]
     f = torch.from_numpy(cat.features).to(DEV)
     nrm = torch.from_numpy(cat.norms).to(DEV)
     rs, ri = similarity.exact_topk_chunked(
-        f[row:row + 1], f, nrm, exclude_rows=torch.tensor([row], device=DEV), k=n
+        f[row:row + 1], f, nrm, exclude_rows=torch.tensor([row], device=DEV), k=n,
+        fixed_order=True,
     )
     want = [str(cat.track_ids[r]) for r in ri[0].tolist()]
     check(ids == want, f"cli ids {ids} != oracle {want}")
-    # printed with 6 decimals: rounding 5e-7 plus rerank-vs-oracle 1e-6
-    check(np.allclose(scores, rs[0].cpu().numpy(), rtol=0, atol=1.5e-6),
+    # printed with 6 decimals: rounding 5e-7
+    check(np.allclose(scores, rs[0].cpu().numpy(), rtol=0, atol=5.1e-7),
           f"cli scores {scores} vs oracle {rs[0].tolist()}")
 
 
@@ -449,16 +523,28 @@ def main() -> None:
           f"torch.version.cuda {info.cuda_version}, nvcc {nvcc!r}, "
           f"power limit {info.power_limit}, nvidia-smi {smi!r}")
 
-    # ---- 2. build
-    t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
-    log = (lib.parent / _build.LOG_NAME).read_text()
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-    spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores", log))
-    print(f"phase 2 build: {lib.name} from {len(_build.sources())} sources in "
-          f"{time.perf_counter() - t0:.1f} s; ptxas: {len(regs)} kernels, "
-          f"{min(regs)}-{max(regs)} registers, {spills} bytes of spill stores")
+    # ---- 2. build: the serving and the experiment library, side by side
+    def build(lib):
+        t = time.perf_counter()
+        path = _build.build(lib)
+        _build.library(lib)
+        return path, time.perf_counter() - t
+
+    with concurrent.futures.ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+        jobs = {lib.name: pool.submit(build, lib) for lib in _build.LIBRARIES}
+        built = {name: job.result() for name, job in jobs.items()}
+    line = []
+    for lib in _build.LIBRARIES:
+        path, secs = built[lib.name]
+        log = (path.parent / _build.LOG_NAME).read_text()
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
+        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
+                                                log))
+        line.append(f"{path.name} ({len(lib.sources)} sources) in {secs:.1f} s, "
+                    f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
+                    f"{spills} bytes of spill stores"
+                    + (f" ({', '.join(spilling_kernels(log))})" if spills else ""))
+    print("phase 2 build (both libraries at once): " + "; ".join(line))
 
     # ---- 3. split: kernel vs plain, bitwise
     rng = np.random.default_rng(0)
@@ -519,7 +605,8 @@ def main() -> None:
         check_recommendations(out, cat, 42, 10)
         t_rec = time.perf_counter() - t0
     print(f"phase 5 cli: preprocess {n_rows} rows in {t_pre:.1f} s; --song and "
-          f"--id equal the oracle on the card ({t_rec:.1f} s for both)")
+          f"--id equal the fixed-order oracle on the card ({t_rec:.1f} s for "
+          "both)")
 
     # ---- 6. main path at benchmark size
     n, b, k = 1_000_000, 1024, 10
@@ -547,30 +634,43 @@ def main() -> None:
     check(all(v > 0 for v in launches.values()),
           f"a kernel of the main path did not launch: {launches}")
     fallbacks, escalations = cr.fallbacks, cr.escalations
+    launches["scan_v3_rescan"] = scan_v3.launches - 1   # after the first scan
 
     f_dev = torch.from_numpy(feats).to(DEV)
     n_dev = torch.from_numpy(norms).to(DEV)
+    fixed = similarity.exact_topk_chunked(queries, f_dev, n_dev,
+                                          exclude_rows=excl, k=k,
+                                          fixed_order=True)
     rs, ri = similarity.exact_topk_chunked(queries, f_dev, n_dev,
                                            exclude_rows=excl, k=k)
     torch.cuda.synchronize()
-    check(torch.equal(i, ri), "certified indices differ from the oracle's "
-          f"in {(i != ri).sum().item()} of {b * k}")
-    check(torch.isfinite(s).all().item() and s.shape == (b, k), "scores")
-    score_err = (s - rs).abs().max().item()
-    check(score_err <= 1e-6, f"scores differ from the oracle's by {score_err}")
+    score_err, ties = check_certified(s, i, fixed, (rs, ri), "v3 batch")
+    check(fallbacks <= 15, f"v3: {fallbacks} oracle fallbacks in a batch")
 
     batch_ms = wall_ms(lambda: retriever.retrieve(queries, k=k, exclude_rows=excl), 20)
     plain_batch_ms = wall_ms(lambda: similarity.exact_topk_chunked(
         queries, f_dev, n_dev, exclude_rows=excl, k=k), 5)
     q1, e1 = queries[:1], excl[:1]
+    split_bf16x2.launches = scan_v3.launches = 0
+    retriever.retrieve(q1, k=k, exclude_rows=e1)
+    torch.cuda.synchronize()
+    launches["scan_v3_b1"] = scan_v3.launches
+    check(split_bf16x2.launches > 0 and scan_v3.launches > 0,
+          "B=1: a kernel of the main path did not launch")
     b1_ms = wall_ms(lambda: retriever.retrieve(q1, k=k, exclude_rows=e1), 20)
+    prof_ms, prof_kernels, idle = profile_batch(
+        lambda: retriever.retrieve(queries, k=k, exclude_rows=excl))
     print(f"phase 6 main path: N={n} B={b} k={k}: {b * k} of {b * k} indices "
-          f"equal the oracle's on the card (max score diff {score_err:.3g}); "
-          f"fallbacks {fallbacks}, escalations {escalations}; launches "
-          f"{launches}; batch {batch_ms:.3f} ms median of 20 "
-          f"({b / batch_ms * 1e3:.0f} q/s); plain path (oracle "
+          f"and scores bitwise the fixed-order oracle's on the card; vs the "
+          f"cuBLAS oracle max score diff {score_err:.3g}, {ties} near-tie "
+          f"positions differ; per batch: fallbacks {fallbacks}, escalations "
+          f"{escalations}; launches {launches}; batch {batch_ms:.3f} ms median "
+          f"of 20 ({b / batch_ms * 1e3:.0f} q/s); plain path (oracle "
           f"exact_topk_chunked) {plain_batch_ms:.3f} ms; B=1 latency "
-          f"{b1_ms:.3f} ms; setup {t_setup:.1f} s")
+          f"{b1_ms:.3f} ms; setup {t_setup:.1f} s; profile of a batch "
+          f"({prof_ms:.3f} ms wall, device idle share {idle:.3f}): "
+          + (", ".join(f"{nm} {ms:.3f}" for nm, ms in prof_kernels.items())
+             or "no device time seen") + " ms")
 
     # ---- kernels at the main path's shapes: vs plain, and timed
     qn = similarity.row_norms(queries)
@@ -592,23 +692,36 @@ def main() -> None:
     )
     q2 = torch.cat([hi, lo, lo, hi], dim=1)
     ft = cr.layout.ft
-    err2, bit2, _ = compare_scan(q2, ft, 2, 32)
-    err3, bit3, _ = compare_scan(q2[:32].contiguous(), ft, 3, 32)   # escalation
-    kernels["scan_v3"] = dict(
-        source="spotify_recommender_tpu_torch/csrc/scan_v3.cu",
-        replaces=f"{PALLAS}:1069", max_abs_err=max(err2, err3),
-        ms=sync_ms(lambda: scan_v3(q2, ft, w=128, depth=2, topc=32), 10),
-        plain_ms=sync_ms(lambda: scan_v3_plain(q2, ft, w=128, depth=2, topc=32), 3),
-        **bound(dot_flops(q2, ft, q2.shape[1]), "bf16", q2, ft,
-                *scan_v3(q2, ft, w=128, depth=2, topc=32)),
-        library_ms=None,
-    )
+    # kernel 1 at the batch's depth-2 scan, the depth-3 rescan of 32
+    # queries and B = 1: each bitwise its plain version, timed, bounded
+    shapes = {"scan_v3": (q2, 2), "scan_v3_rescan": (q2[:32].contiguous(), 3),
+              "scan_v3_b1": (q2[:1].contiguous(), 2)}
+    for name, (qq, depth) in shapes.items():
+        err, _, out = compare_scan(qq, ft, depth, 32)
+        kernels[name] = dict(
+            source="spotify_recommender_tpu_torch/csrc/scan_v3.cu",
+            replaces=f"{PALLAS}:1069", max_abs_err=err,
+            ms=sync_ms(lambda: scan_v3(qq, ft, w=128, depth=depth, topc=32), 20),
+            plain_ms=sync_ms(lambda: scan_v3_plain(qq, ft, w=128, depth=depth,
+                                                   topc=32), 3),
+            **bound(dot_flops(qq, ft, qq.shape[1]), "bf16", qq, ft, *out),
+            library_ms=None,
+        )
+    t_scan = {nm: kernels[nm]["ms"] for nm in shapes}
+    check(t_scan["scan_v3_b1"] <= 0.1 * t_scan["scan_v3"]
+          and t_scan["scan_v3_rescan"] <= 0.25 * t_scan["scan_v3"],
+          f"the split does not pay: {t_scan}")
     print(f"kernels at main-path shapes: split {tuple(qunit.shape)} "
           f"{kernels['split_bf16x2']['ms']:.4f} ms vs plain "
-          f"{kernels['split_bf16x2']['plain_ms']:.4f} ms; scan depth 2 "
-          f"({b} x {ft.shape[1]}) {kernels['scan_v3']['ms']:.3f} ms vs plain "
-          f"{kernels['scan_v3']['plain_ms']:.3f} ms (bitwise {bit2}); escalation "
-          f"shape depth 3 (32 queries) bitwise {bit3}")
+          f"{kernels['split_bf16x2']['plain_ms']:.4f} ms; kernel 1 bitwise "
+          f"equal to plain, ({b} x {ft.shape[1]}) depth 2 "
+          f"{t_scan['scan_v3']:.3f} ms, the 32-query depth-3 rescan "
+          f"{t_scan['scan_v3_rescan']:.4f} ms "
+          f"({t_scan['scan_v3_rescan'] / t_scan['scan_v3']:.3f} of it), B=1 "
+          f"{t_scan['scan_v3_b1']:.4f} ms "
+          f"({t_scan['scan_v3_b1'] / t_scan['scan_v3']:.3f} of it); plain "
+          + ", ".join(f"{nm} {kernels[nm]['plain_ms']:.1f}" for nm in shapes)
+          + " ms")
 
     # ---- 7. kernel 3 at the main path's shapes, both modes
     unit = feats / np.maximum(norms, 1e-30)[:, None]      # FusedRetriever's
@@ -762,12 +875,15 @@ def main() -> None:
                    "scan_v2": scan_v2.launches}
     check(all(v > 0 for v in launches_v2.values()),
           f"a kernel of the v2 path did not launch: {launches_v2}")
-    fb10 = r10.certified.fallbacks
-    check(torch.equal(i10, ri), "v2 certified indices differ from the "
-          f"oracle's in {(i10 != ri).sum().item()} of {b * k}")
-    err10 = (s10 - rs).abs().max().item()
-    check(err10 <= TOL_EXACT, f"v2 scores differ from the oracle's by {err10}")
+    fb10, esc10 = r10.certified.fallbacks, r10.certified.escalations
+    err10, ties10 = check_certified(s10, i10, fixed, (rs, ri), "v2 batch")
+    check(fb10 < 27, f"v2: {fb10} oracle fallbacks in a batch")
     batch10 = wall_ms(lambda: r10.retrieve(queries, k=k, exclude_rows=excl), 20)
+    split_bf16x2.launches = scan_v2.launches = 0
+    r10.retrieve(q1, k=k, exclude_rows=e1)
+    torch.cuda.synchronize()
+    launches["scan_v2_b1"] = scan_v2.launches
+    check(scan_v2.launches > 0, "v2 B=1: kernel 4 did not launch")
     b1_10 = wall_ms(lambda: r10.retrieve(q1, k=k, exclude_rows=e1), 20)
     # kernel 4 against its plain version: compact at the path's shapes, and
     # the full structures over the first 65,536 columns of 64 queries
@@ -778,17 +894,29 @@ def main() -> None:
         q2[:64].contiguous(), dl10.ft[:, :m], 3, 0, w=512,
         v2=(qn[:64], dl10.nrm_row[:m], excl[:64], m, 1e-8))
     check(fv.shape == (64, 3 * 512) and fb.shape == (64, 512), "full shapes")
-    v2call = (q2, qn, dl10.ft, dl10.nrm_row, excl, n)
-    kernels["scan_v2"] = dict(
-        source=f"{CSRC}/scan_v2.cu", replaces=f"{PALLAS}:834",
-        max_abs_err=max(err4, errf),
-        ms=sync_ms(lambda: scan_v2(*v2call, w=512, eps=1e-8, topc=32), 10),
-        plain_ms=sync_ms(lambda: scan_v2_plain(*v2call, w=512, eps=1e-8,
-                                               topc=32), 3),
-        **bound(dot_flops(q2, dl10.ft, q2.shape[1]), "bf16", *v2call[:5],
-                *scan_v2(*v2call, w=512, eps=1e-8, topc=32)),
-        library_ms=None,
-    )
+    # kernel 4 at the batch, at 32 queries and at B = 1
+    v2shapes = {"scan_v2": b, "scan_v2_b32": 32, "scan_v2_b1": 1}
+    for name, m4 in v2shapes.items():
+        v2call = (q2[:m4].contiguous(), qn[:m4], dl10.ft, dl10.nrm_row,
+                  excl[:m4], n)
+        if m4 != b:
+            err4 = compare_scan(v2call[0], dl10.ft, 3, 32, w=512,
+                                v2=(qn[:m4], dl10.nrm_row, excl[:m4], n,
+                                    1e-8))[0]
+        entry = dict(
+            source=f"{CSRC}/scan_v2.cu", replaces=f"{PALLAS}:834",
+            max_abs_err=max(err4, errf),
+            ms=sync_ms(lambda: scan_v2(*v2call, w=512, eps=1e-8, topc=32), 20),
+            plain_ms=sync_ms(lambda: scan_v2_plain(*v2call, w=512, eps=1e-8,
+                                                   topc=32), 3),
+            **bound(dot_flops(v2call[0], dl10.ft, q2.shape[1]), "bf16",
+                    *v2call[:5], *scan_v2(*v2call, w=512, eps=1e-8, topc=32)),
+            library_ms=None,
+        )
+        if name == "scan_v2_b32":       # no path runs it: printed, not listed
+            t_v2_b32 = entry["ms"]
+        else:
+            kernels[name] = entry
     launches.update(scan_v2=launches_v2["scan_v2"])
     launches["split_bf16x2"] += launches_v2["split_bf16x2"]
     del r10, dl10
@@ -801,8 +929,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launched512 = scan_v3.launches
     check(launched512 > 0, "W=512: the scan kernel did not launch")
-    check(torch.equal(i512, ri), "W=512 certified indices differ from the "
-          f"oracle's in {(i512 != ri).sum().item()} of {b * k}")
+    check_certified(s512, i512, fixed, (rs, ri), "W=512 batch")
     fb512, esc512 = r512.certified.fallbacks, r512.certified.escalations
     errw2, bitw2, _ = compare_scan(q2, ft512, 2, 32, w=512)
     errw3, bitw3, _ = compare_scan(q2[:32].contiguous(), ft512, 3, 32, w=512)
@@ -819,16 +946,20 @@ def main() -> None:
     launches["scan_v3_w512"] = launched512
     batch512 = wall_ms(lambda: r512.retrieve(queries, k=k, exclude_rows=excl), 5)
     print(f"phase 10 v2 certified tier: N={n} B={b} k={k} W=512 depth 3: "
-          f"{b * k} of {b * k} indices equal the oracle's on the card (max "
-          f"score diff {err10:.3g}); fallbacks {fb10} per batch; launches "
+          f"{b * k} of {b * k} indices and scores bitwise the fixed-order "
+          f"oracle's on the card; vs the cuBLAS oracle max score diff "
+          f"{err10:.3g}, {ties10} near-tie positions differ; per batch: "
+          f"fallbacks {fb10}, escalations {esc10}; launches "
           f"{launches_v2}; batch {batch10:.3f} ms median of 20 "
           f"({b / batch10 * 1e3:.0f} q/s); B=1 {b1_10:.3f} ms; setup "
           f"{t_setup10:.1f} s; kernel 4 ({b} x {ft512.shape[1]}, C=32) "
           f"{kernels['scan_v2']['ms']:.3f} ms vs plain "
           f"{kernels['scan_v2']['plain_ms']:.3f} ms, max err {err4:.3g} "
-          f"(bitwise {bit4}); full structures (64 x {m}) max err {errf:.3g} "
-          f"(bitwise {bitf}); kernel 1 at W=512: certified batch equal to the "
-          f"oracle ({launched512} launches, {fb512} fallbacks, {esc512} "
+          f"(bitwise {bit4}), at 32 queries {t_v2_b32:.4f} ms, at B=1 "
+          f"{kernels['scan_v2_b1']['ms']:.4f} ms (bitwise); full structures "
+          f"(64 x {m}) max err {errf:.3g} "
+          f"(bitwise {bitf}); kernel 1 at W=512: certified batch bitwise the "
+          f"fixed-order oracle's ({launched512} launches, {fb512} fallbacks, {esc512} "
           f"escalations per batch, {batch512:.3f} ms), depth 2 "
           f"{kernels['scan_v3_w512']['ms']:.3f} ms vs plain "
           f"{kernels['scan_v3_w512']['plain_ms']:.3f} ms (bitwise {bitw2}), "

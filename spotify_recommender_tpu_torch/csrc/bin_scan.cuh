@@ -22,8 +22,7 @@
 //   level*W + bin) by value descending, slot ascending, and the max bound
 //   over the bins;
 //   out, full (topc = 0): the (D*W) slot values and columns and the (W)
-//   per-bin bounds; with a catalog split (slice > 0) one such structure per
-//   slice of `slice` columns, for a merge kernel to fold.
+//   per-bin bounds.
 //
 // This reproduces the TPU kernels' candidate structures exactly: their bin
 // of a global column is `col mod W` because W divides the catalog tile
@@ -38,33 +37,55 @@
 // [qh, ql].  Plain reads rows [0, qw) against (B, qw) queries.
 //
 // What bounds it on an H100: fp32 FMA issue.  B x Np x 4F FMAs (1024 x 1M x
-// 48 = 50 G FMAs at the benchmark shape) against 48 bytes of catalog per
-// column streamed once per block.  Design, right before fast:
+// 48 = 50 G FMAs at the benchmark shape, 1.5 ms at the CUDA cores' 67
+// TFLOP/s) against 48 bytes of catalog per column.  The TPU ran a grid of
+// (query tiles, catalog tiles) in order on one core and carried the bins
+// across catalog tiles in VMEM; a port that kept one block per query tile
+// walked the whole catalog in each block, so B = 1 cost a full walk and
+// B = 1024 filled fewer than half of the 132 SMs.  Design:
 //
-// - a block has W threads; thread t owns bin t and walks its columns t,
-//   t+W, ... in ascending order, so the strict-`>` insert keeps the lowest
-//   column, as the TPU's sequential grid does.  W is a template parameter
-//   (every multiple of 128 up to 1024): with W read from blockDim.x the
-//   W = 128 scan took 22.1 ms instead of 15.4 ms at 1024 x 1M (NVIDIA H100
-//   80GB HBM3, 700 W; PERF.md);
+// - two kernels.  `scan_kernel` runs a grid of (query tiles x catalog
+//   slices), a slice being a run of whole W-column groups; each block walks
+//   its slice and writes that slice's full structures (D*W values and
+//   columns, W bounds per query) to scratch.  `merge_kernel` folds the
+//   slices of each (query, bin) in ascending order and then extracts the
+//   compact output or writes the merged full structures.  The wrappers
+//   pick the slice so that the grid covers the card's block slots a few
+//   times over at any B (ops/cuda/scan_v3.split_slice);
+// - the merge inserts a later slice's D pairs, in their order, into the
+//   running D-list with the walk's own insert (strict `>`: the earlier
+//   slice, so the lower column, wins ties), and takes the max of the two
+//   bounds.  The values it evicts are the smallest D of the 2D, so the
+//   bound becomes max(b_a, b_b, (D+1)-th of the union): the bin's (D+1)-th
+//   largest value, as the single walk's bound is.  Only compares, max and
+//   min touch the values, so the result is bitwise the single walk's;
+// - in a block of W threads, thread t owns bin t and walks its columns t,
+//   t+W, ... in ascending order.  It scores U of them per step
+//   (`cols_per_step`), so each query broadcast read from shared memory
+//   feeds U columns' FMAs, and inserts them in ascending column order.  W
+//   is a template parameter (every multiple of 128 up to 1024): with W read
+//   from blockDim.x the W = 128 scan took 22.1 ms instead of 15.4 ms at
+//   1024 x 1M (NVIDIA H100 80GB HBM3, 700 W; PERF.md);
 // - a block takes a tile of TQ queries, and per query the thread keeps D
 //   (value, column) pairs and the bound in registers.  The register file
 //   (65,536 per SM) bounds TQ * W: TQ = 16 up to W = 256, 8 up to 512, 4 up
 //   to 1024;
-// - catalog tiles of rows x tc bf16 (tc a multiple of W) are staged once per
-//   block through shared memory with 16-byte copies; the query tile sits in
-//   shared memory transposed, so one row's TQ values are read as float4
+// - catalog tiles of rows x tc bf16 (tc a multiple of U*W) are double
+//   buffered in shared memory with 16-byte `cp.async` copies: tile i+1 is
+//   in flight while tile i is scored.  The query tile sits in shared
+//   memory transposed, so one row's TQ values are read as float4
 //   broadcasts;
-// - at the end the block writes its bin structure to shared memory and each
-//   warp extracts the top-topc of its queries by warp-wide argmax rounds
-//   (value descending, slot ascending), as the TPU's masked-argmax rounds
-//   do; a picked slot is knocked out as NaN, which never ranks.
+// - the merge block takes one query with W*R threads: R groups fold R runs
+//   of slices in parallel, then group 0 folds the R partial lists in order.
+//   For the compact output, warp 0 extracts the top-topc by warp-wide
+//   argmax rounds (value descending, slot ascending), as the TPU's
+//   masked-argmax rounds do; a picked slot is knocked out as NaN, which
+//   never ranks.
 //
-// Known limit: without a split, one block per query tile walks the whole
-// catalog, so B = 1 costs what B = TQ costs.  The split (blockIdx.y a
-// catalog slice, full structures per slice) is merged so far only at depth
-// 1 (proto_scans.cu, `d1_merge`); kernels 1 and 4 keep the single walk.
-// Tensor cores (wgmma) are later work.
+// The prototypes' single walk (scan_d1, proto_scan) is the scan kernel over
+// one slice writing straight to the outputs, without the merge.
+// Tensor cores (wgmma) are later work: their fp32 accumulation is not
+// documented to round each addition to nearest, which BF16X2_EPS assumes.
 
 #pragma once
 
@@ -78,7 +99,9 @@
 namespace bin_scan {
 
 constexpr int kMaxBins = 1024;       // W: one bin per thread
-constexpr int kTileBytes = 24576;    // shared-memory budget of a catalog tile
+constexpr int kTileBytes = 24576;    // shared memory of one catalog tile
+constexpr int kMaxSlices = 65535;    // gridDim.y
+constexpr int kMergeThreads = 1024;  // threads of a merge block
 // dynamic shared memory of a block on an H100 (232,448 bytes) less room
 // for the kernel's static arrays
 constexpr int kMaxSmem = 232448 - 1024;
@@ -88,37 +111,71 @@ __host__ __device__ constexpr int queries_per_block(int w) {
   return w <= 256 ? 16 : (w <= 512 ? 8 : 4);
 }
 
+// columns a thread scores per step: U * TQ accumulators beside the TQ * D
+// pairs and TQ bounds, as many as the registers hold without spilling, and
+// one column above W = 512, where two W-column groups would overflow the
+// tile's shared memory.  U = 4 at depth <= 2 for W <= 256 timed fastest of
+// 1, 2 and 4 at 1024 x 1M (variant builds on the card, not kept)
+__host__ __device__ constexpr int cols_per_step(int w, int d) {
+  return w > 512 ? 1 : (w > 256 ? 2 : (d <= 2 ? 4 : (d == 3 ? 2 : 1)));
+}
+
+// slice-folding groups of a merge block: W * R threads
+__host__ __device__ constexpr int merge_groups(int w) {
+  return w >= kMergeThreads ? 1 : kMergeThreads / w;
+}
+
 // ---- contraction policies: which catalog rows a query meets, and how.
 // `f` is the width argument of the call: F for SplitPlanes, qw for Plain.
-// The staged query tile is qs[r * TQ + q], fp32, for r < rows(f).
+// The staged query tile is qs[r * TQ + q], fp32, for r < rows(f).  `dot`
+// scores columns cc, cc+W, ..., cc+(U-1)W of the tile into acc[u][q]; its
+// loop over the rows is unrolled twice where kUnroll2 (see score_step).
 
 struct SplitPlanes {
   __host__ __device__ static int rows(int f) { return 2 * f; }
   __host__ __device__ static int64_t q_stride(int f) { return 4 * f; }
-  template <int TQ>
-  __device__ static void dot(const float* qs, const __nv_bfloat16* tile,
-                             int tc, int cc, int f, float (&acc)[TQ]) {
-    for (int j = 0; j < f; ++j) {
-      const float h = __bfloat162float(tile[j * tc + cc]);
-      const float l = __bfloat162float(tile[(f + j) * tc + cc]);
-      const float4* qh4 = reinterpret_cast<const float4*>(qs + j * TQ);
-      const float4* ql4 = reinterpret_cast<const float4*>(qs + (f + j) * TQ);
+  // feature j's 4 * TQ * U FMAs
+  template <int TQ, int U, int W>
+  __device__ __forceinline__ static void row(const float* qs,
+                                             const __nv_bfloat16* tile,
+                                             int tc, int cc, int f, int j,
+                                             float (&acc)[U][TQ]) {
+    float h[U], l[U];
 #pragma unroll
-      for (int q4 = 0; q4 < TQ / 4; ++q4) {
-        const float4 a = qh4[q4];
-        const float4 e = ql4[q4];
-        const float qh[4] = {a.x, a.y, a.z, a.w};
-        const float ql[4] = {e.x, e.y, e.z, e.w};
+    for (int u = 0; u < U; ++u) {
+      h[u] = __bfloat162float(tile[j * tc + cc + u * W]);
+      l[u] = __bfloat162float(tile[(f + j) * tc + cc + u * W]);
+    }
+    const float4* qh4 = reinterpret_cast<const float4*>(qs + j * TQ);
+    const float4* ql4 = reinterpret_cast<const float4*>(qs + (f + j) * TQ);
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          float s = acc[4 * q4 + u];
-          s = fmaf(qh[u], h, s);
-          s = fmaf(ql[u], l, s);
-          s = fmaf(ql[u], h, s);
-          s = fmaf(qh[u], l, s);
-          acc[4 * q4 + u] = s;
+    for (int q4 = 0; q4 < TQ / 4; ++q4) {
+      const float4 a = qh4[q4];
+      const float4 e = ql4[q4];
+      const float qh[4] = {a.x, a.y, a.z, a.w};
+      const float ql[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          float s = acc[u][4 * q4 + k];
+          s = fmaf(qh[k], h[u], s);
+          s = fmaf(ql[k], l[u], s);
+          s = fmaf(ql[k], h[u], s);
+          s = fmaf(qh[k], l[u], s);
+          acc[u][4 * q4 + k] = s;
         }
       }
+    }
+  }
+  template <int TQ, int U, int W, bool kUnroll2>
+  __device__ static void dot(const float* qs, const __nv_bfloat16* tile,
+                             int tc, int cc, int f, float (&acc)[U][TQ]) {
+    if constexpr (kUnroll2) {
+#pragma unroll 2
+      for (int j = 0; j < f; ++j) row<TQ, U, W>(qs, tile, tc, cc, f, j, acc);
+    } else {
+      for (int j = 0; j < f; ++j) row<TQ, U, W>(qs, tile, tc, cc, f, j, acc);
     }
   }
 };
@@ -126,20 +183,37 @@ struct SplitPlanes {
 struct Plain {
   __host__ __device__ static int rows(int f) { return f; }
   __host__ __device__ static int64_t q_stride(int f) { return f; }
-  template <int TQ>
-  __device__ static void dot(const float* qs, const __nv_bfloat16* tile,
-                             int tc, int cc, int f, float (&acc)[TQ]) {
-    for (int r = 0; r < f; ++r) {
-      const float x = __bfloat162float(tile[r * tc + cc]);
-      const float4* q4p = reinterpret_cast<const float4*>(qs + r * TQ);
+  // row r's TQ * U FMAs
+  template <int TQ, int U, int W>
+  __device__ __forceinline__ static void row(const float* qs,
+                                             const __nv_bfloat16* tile,
+                                             int tc, int cc, int r,
+                                             float (&acc)[U][TQ]) {
+    float x[U];
 #pragma unroll
-      for (int q4 = 0; q4 < TQ / 4; ++q4) {
-        const float4 a = q4p[q4];
-        acc[4 * q4 + 0] = fmaf(a.x, x, acc[4 * q4 + 0]);
-        acc[4 * q4 + 1] = fmaf(a.y, x, acc[4 * q4 + 1]);
-        acc[4 * q4 + 2] = fmaf(a.z, x, acc[4 * q4 + 2]);
-        acc[4 * q4 + 3] = fmaf(a.w, x, acc[4 * q4 + 3]);
+    for (int u = 0; u < U; ++u)
+      x[u] = __bfloat162float(tile[r * tc + cc + u * W]);
+    const float4* q4p = reinterpret_cast<const float4*>(qs + r * TQ);
+#pragma unroll
+    for (int q4 = 0; q4 < TQ / 4; ++q4) {
+      const float4 a = q4p[q4];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        acc[u][4 * q4 + 0] = fmaf(a.x, x[u], acc[u][4 * q4 + 0]);
+        acc[u][4 * q4 + 1] = fmaf(a.y, x[u], acc[u][4 * q4 + 1]);
+        acc[u][4 * q4 + 2] = fmaf(a.z, x[u], acc[u][4 * q4 + 2]);
+        acc[u][4 * q4 + 3] = fmaf(a.w, x[u], acc[u][4 * q4 + 3]);
       }
+    }
+  }
+  template <int TQ, int U, int W, bool kUnroll2>
+  __device__ static void dot(const float* qs, const __nv_bfloat16* tile,
+                             int tc, int cc, int f, float (&acc)[U][TQ]) {
+    if constexpr (kUnroll2) {
+#pragma unroll 2
+      for (int r = 0; r < f; ++r) row<TQ, U, W>(qs, tile, tc, cc, r, acc);
+    } else {
+      for (int r = 0; r < f; ++r) row<TQ, U, W>(qs, tile, tc, cc, r, acc);
     }
   }
 };
@@ -175,6 +249,36 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile,
     reinterpret_cast<uint4*>(tile + static_cast<int64_t>(r) * tc)[c] =
         reinterpret_cast<const uint4*>(ft + r * ft_stride + base)[c];
   }
+}
+
+// As load_tile, with asynchronous copies (cp.async.cg: global -> shared,
+// bypassing L1); the caller commits the group and waits for it.
+template <int NT>
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* tile,
+                                                const __nv_bfloat16* ft,
+                                                int64_t ft_stride,
+                                                int64_t base, int rows,
+                                                int cols, int tc, int t) {
+  const int vec_per_row = cols / 8;
+  for (int i = t; i < rows * vec_per_row; i += NT) {
+    const int r = i / vec_per_row;
+    const int c = i % vec_per_row;
+    const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+        tile + static_cast<int64_t>(r) * tc + 8 * c));
+    const void* src = ft + r * ft_stride + base + 8 * c;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 template <int D>
@@ -220,23 +324,69 @@ struct Args {
   int f;                // the policy's width: F, or qw
   const void* ft;
   int64_t ft_stride, np;
-  int topc;
+  int topc;             // > 0 compact output, 0 full structures
   Epilogue epi;
+  int64_t slice;        // columns per catalog slice; 0 = one slice
+  void* wv;             // per-slice structures (slices, b, D*W) f32,
+  void* wi;             //   (slices, b, D*W) i32, (slices, b, W) f32
+  void* wb;
+  bool merge;           // fold wv/wi/wb into ov/oi/ob; false: one slice,
+                        //   and wv/wi/wb are the full outputs
   void* ov;
   void* oi;
   void* ob;
-  int64_t slice = 0;    // > 0: columns per catalog slice (full output only)
 };
 
+// Scores the U columns cc, cc+W, ... of the staged tile (global columns
+// base + cc + u*W) for the TQ queries, and inserts them in ascending order.
+template <int W, int TQ, int D, int U, Epi E, class C>
+__device__ __forceinline__ void score_step(
+    const float* qs, const __nv_bfloat16* tile, int tc, int cc, int f,
+    int64_t base, const Epilogue& epi, const float* sqn, const int64_t* sex,
+    float (&v)[TQ][D], int (&ix)[TQ][D], float (&bnd)[TQ]) {
+  float acc[U][TQ];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int q = 0; q < TQ; ++q) acc[u][q] = 0.0f;
+  // the epilogue-free instances above W = 512 (64-85 registers a thread)
+  // spill with the row loop unrolled twice; the others gain from it
+  C::template dot<TQ, U, W, !(W > 512 && E == Epi::kNone)>(qs, tile, tc, cc,
+                                                           f, acc);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int col = static_cast<int>(base + cc + u * W);
+    if (E != Epi::kNone) {
+      // the cosine epilogue on the raw norms, then the masks
+      // (fused_topk.py:922-929)
+      const float cnorm = epi.cn[col];
+      const bool pad = col >= epi.valid;
+#pragma unroll
+      for (int q = 0; q < TQ; ++q) {
+        const float den = __fmul_rn(sqn[q], cnorm);
+        const float s =
+            den > epi.eps ? fminf(fmaxf(acc[u][q], -1.0f), 1.0f) : 0.0f;
+        acc[u][q] = (pad || col == sex[q]) ? -INFINITY : s;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < TQ; ++q)
+      bin_insert<D>(v[q], ix[q], bnd[q], acc[u][q], col);
+  }
+}
+
+// Block (x, y): queries [x*TQ, x*TQ + TQ) over catalog columns [y*slice,
+// min(np, y*slice + slice)); writes the slice's full structures to rows
+// y*b + query of wv (D*W), wi (D*W), wb (W).
 template <int W, int D, Epi E, class C>
 __global__ void __launch_bounds__(W)
-    bin_scan_kernel(const __nv_bfloat16* __restrict__ q2, int64_t b, int f,
-                    const __nv_bfloat16* __restrict__ ft, int64_t ft_stride,
-                    int64_t np, int tc, int64_t slice, int topc,
-                    Epilogue epi, float* __restrict__ ov,
-                    int32_t* __restrict__ oi, float* __restrict__ ob) {
+    scan_kernel(const __nv_bfloat16* __restrict__ q2, int64_t b, int f,
+                const __nv_bfloat16* __restrict__ ft, int64_t ft_stride,
+                int64_t np, int tc, int64_t slice, Epilogue epi,
+                float* __restrict__ wv, int32_t* __restrict__ wi,
+                float* __restrict__ wb) {
   constexpr int TQ = queries_per_block(W);
-  constexpr int w = W;
+  constexpr int U = cols_per_step(W, D);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float sqn[TQ];
   __shared__ int64_t sex[TQ];
@@ -246,9 +396,10 @@ __global__ void __launch_bounds__(W)
   const int64_t c1 = np - c0 < slice ? np : c0 + slice;
   const int rows = C::rows(f);
 
-  // ---- scan phase: qs[rows][TQ] fp32, tile[rows][tc]
+  // qs[rows][TQ] fp32, then two tile buffers [rows][tc] bf16
   float* qs = reinterpret_cast<float*>(smem);
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(qs + rows * TQ);
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(qs + rows * TQ);
+  const int64_t buf = static_cast<int64_t>(rows) * tc;
   load_queries<W, TQ, C>(qs, q2, b, q0, f, t);
   if (E != Epi::kNone && t < TQ) {
     const bool in = q0 + t < b;
@@ -269,154 +420,231 @@ __global__ void __launch_bounds__(W)
     bnd[q] = -INFINITY;
   }
 
-  for (int64_t base = c0; base < c1; base += tc) {
+  const int64_t ntiles = c1 > c0 ? (c1 - c0 + tc - 1) / tc : 0;
+  if (ntiles > 0) {
+    load_tile_async<W>(tiles, ft, ft_stride, c0, rows,
+                       static_cast<int>(c1 - c0 < tc ? c1 - c0 : tc), tc, t);
+    cp_async_commit();
+  }
+  for (int64_t i = 0; i < ntiles; ++i) {
+    const int64_t base = c0 + i * tc;
     const int cols = static_cast<int>(c1 - base < tc ? c1 - base : tc);
-    __syncthreads();  // the previous tile is consumed; qs is written
-    load_tile<W>(tile, ft, ft_stride, base, rows, cols, tc, t);
-    __syncthreads();
-    for (int cc = t; cc < cols; cc += w) {
-      float acc[TQ];
-#pragma unroll
-      for (int q = 0; q < TQ; ++q) acc[q] = 0.0f;
-      C::template dot<TQ>(qs, tile, tc, cc, f, acc);
-      const int col = static_cast<int>(base + cc);
-      if (E != Epi::kNone) {
-        // the cosine epilogue on the raw norms, then the masks
-        // (fused_topk.py:922-929)
-        const float cnorm = epi.cn[col];
-        const bool pad = col >= epi.valid;
-#pragma unroll
-        for (int q = 0; q < TQ; ++q) {
-          const float den = __fmul_rn(sqn[q], cnorm);
-          const float s =
-              den > epi.eps ? fminf(fmaxf(acc[q], -1.0f), 1.0f) : 0.0f;
-          acc[q] = (pad || col == sex[q]) ? -INFINITY : s;
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < TQ; ++q) bin_insert<D>(v[q], ix[q], bnd[q], acc[q], col);
+    if (i + 1 < ntiles) {
+      // tile i+1 into the other buffer, which every thread left at the end
+      // of step i-1
+      const int64_t next = base + tc;
+      load_tile_async<W>(tiles + ((i + 1) & 1) * buf, ft, ft_stride, next,
+                         rows, static_cast<int>(c1 - next < tc ? c1 - next : tc),
+                         tc, t);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // tile i (and, at i = 0, qs) is visible to all
+    const __nv_bfloat16* tile = tiles + (i & 1) * buf;
+    const int groups = cols / W;
+    int g = 0;
+    for (; g + U <= groups; g += U)
+      score_step<W, TQ, D, U, E, C>(qs, tile, tc, t + g * W, f, base, epi,
+                                    sqn, sex, v, ix, bnd);
+    for (; g < groups; ++g)
+      score_step<W, TQ, D, 1, E, C>(qs, tile, tc, t + g * W, f, base, epi,
+                                    sqn, sex, v, ix, bnd);
+    __syncthreads();  // tile i is consumed before its buffer is refilled
   }
 
-  constexpr int S = D * w;
-  if (topc == 0) {
-    // full structures straight to global memory: slot = level*W + bin,
-    // one structure per catalog slice
-    const int64_t row0 = static_cast<int64_t>(blockIdx.y) * b + q0;
-#pragma unroll
-    for (int q = 0; q < TQ; ++q) {
-      if (q0 + q >= b) break;
-      const int64_t qg = row0 + q;
-#pragma unroll
-      for (int l = 0; l < D; ++l) {
-        ov[qg * S + l * w + t] = v[q][l];
-        oi[qg * S + l * w + t] = ix[q][l];
-      }
-      ob[qg * w + t] = bnd[q];
-    }
-    return;
-  }
-  __syncthreads();  // the tile buffer is reused below
-
-  // ---- extraction phase: sv[TQ][D*W], si[TQ][D*W], sb[TQ][W]
-  float* sv = reinterpret_cast<float*>(smem);
-  int* si = reinterpret_cast<int*>(sv + TQ * S);
-  float* sb = reinterpret_cast<float*>(si + TQ * S);
+  // this slice's full structures: slot = level*W + bin
+  constexpr int S = D * W;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.y) * b + q0;
 #pragma unroll
   for (int q = 0; q < TQ; ++q) {
+    if (q0 + q >= b) break;
+    const int64_t qg = row0 + q;
 #pragma unroll
     for (int l = 0; l < D; ++l) {
-      sv[q * S + l * w + t] = v[q][l];
-      si[q * S + l * w + t] = ix[q][l];
+      wv[qg * S + l * W + t] = v[q][l];
+      wi[qg * S + l * W + t] = ix[q][l];
     }
-    sb[q * w + t] = bnd[q];
-  }
-  __syncthreads();
-
-  const int warp = t / 32;
-  const int lane = t % 32;
-  for (int q = warp; q < TQ; q += w / 32) {
-    const int64_t qg = q0 + q;
-    if (qg >= b) break;
-    float* row = sv + q * S;
-    for (int r = 0; r < topc; ++r) {
-      float bv = -INFINITY;
-      int bs = INT_MAX;  // "none": ranks after every real slot
-      for (int slot = lane; slot < S; slot += 32) {
-        if (ranks_before(row[slot], slot, bv, bs)) {
-          bv = row[slot];
-          bs = slot;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov2 = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int os2 = __shfl_xor_sync(0xffffffffu, bs, off);
-        if (ranks_before(ov2, os2, bv, bs)) {
-          bv = ov2;
-          bs = os2;
-        }
-      }
-      if (lane == 0) {
-        ov[qg * topc + r] = bv;
-        oi[qg * topc + r] = si[q * S + bs];
-        row[bs] = NAN;  // taken: never ranks again
-      }
-      __syncwarp();
-    }
-    float m = -INFINITY;
-    for (int i = lane; i < w; i += 32) m = fmaxf(m, sb[q * w + i]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    if (lane == 0) ob[qg] = m;
+    wb[qg * W + t] = bnd[q];
   }
 }
 
-// W-column groups per catalog tile: the tile budget, at least one group.
-// The shared memory is sized from the real tile (at qw = 48 and W = 512 one
-// group is 49,152 bytes, twice the budget).
-inline int tile_cols(int rows, int w) {
-  const int groups = kTileBytes / (rows * w * 2);
-  return (groups < 1 ? 1 : groups) * w;
+// Block x: query x.  Folds the `slices` per-slice structures of each bin in
+// ascending slice order, then writes the compact output (topc > 0: ov, oi
+// (b, topc), ob (b,)) or the merged full structures (ov, oi (b, D*W), ob
+// (b, W)).
+template <int W, int D>
+__global__ void __launch_bounds__(W * merge_groups(W))
+    merge_kernel(const float* __restrict__ wv, const int32_t* __restrict__ wi,
+                 const float* __restrict__ wb, int64_t slices, int64_t b,
+                 int topc, float* __restrict__ ov, int32_t* __restrict__ oi,
+                 float* __restrict__ ob) {
+  constexpr int R = merge_groups(W);
+  constexpr int S = D * W;
+  // each group's partial structure: pv[R][S], pi[R][S], pb[R][W]
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* pv = reinterpret_cast<float*>(smem);
+  int* pi = reinterpret_cast<int*>(pv + R * S);
+  float* pb = reinterpret_cast<float*>(pi + R * S);
+  const int t = threadIdx.x % W;   // the bin
+  const int r = threadIdx.x / W;   // the group
+  const int64_t qg = blockIdx.x;
+
+  float v[D];
+  int ix[D];
+  float bnd = -INFINITY;
+#pragma unroll
+  for (int l = 0; l < D; ++l) {
+    v[l] = -INFINITY;
+    ix[l] = -1;
+  }
+  // group r folds slices [s0, s1); an empty list (-inf, -1) merges as the
+  // identity
+  const int per = static_cast<int>((slices + R - 1) / R);  // <= 65,535
+  const int s0 = r * per;
+  const int s1 = slices < s0 + per ? static_cast<int>(slices) : s0 + per;
+#pragma unroll 4
+  for (int s = s0; s < s1; ++s) {
+    const int64_t row = s * b + qg;
+#pragma unroll
+    for (int l = 0; l < D; ++l)
+      bin_insert<D>(v, ix, bnd, wv[row * S + l * W + t],
+                    wi[row * S + l * W + t]);
+    bnd = fmaxf(bnd, wb[row * W + t]);
+  }
+  if (R > 1) {
+#pragma unroll
+    for (int l = 0; l < D; ++l) {
+      pv[r * S + l * W + t] = v[l];
+      pi[r * S + l * W + t] = ix[l];
+    }
+    pb[r * W + t] = bnd;
+    __syncthreads();
+    if (r == 0) {
+      for (int g = 1; g < R; ++g) {
+#pragma unroll
+        for (int l = 0; l < D; ++l)
+          bin_insert<D>(v, ix, bnd, pv[g * S + l * W + t],
+                        pi[g * S + l * W + t]);
+        bnd = fmaxf(bnd, pb[g * W + t]);
+      }
+    }
+  }
+  if (topc == 0) {
+    if (r == 0) {
+#pragma unroll
+      for (int l = 0; l < D; ++l) {
+        ov[qg * S + l * W + t] = v[l];
+        oi[qg * S + l * W + t] = ix[l];
+      }
+      ob[qg * W + t] = bnd;
+    }
+    return;
+  }
+  __syncthreads();  // every group has read the partials
+  if (r == 0) {
+#pragma unroll
+    for (int l = 0; l < D; ++l) {
+      pv[l * W + t] = v[l];
+      pi[l * W + t] = ix[l];
+    }
+    pb[t] = bnd;
+  }
+  __syncthreads();
+  if (threadIdx.x >= 32) return;
+
+  // warp 0: the top-topc slots by warp-wide argmax rounds
+  const int lane = threadIdx.x;
+  for (int k = 0; k < topc; ++k) {
+    float bv = -INFINITY;
+    int bs = INT_MAX;  // "none": ranks after every real slot
+    for (int slot = lane; slot < S; slot += 32) {
+      if (ranks_before(pv[slot], slot, bv, bs)) {
+        bv = pv[slot];
+        bs = slot;
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov2 = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int os2 = __shfl_xor_sync(0xffffffffu, bs, off);
+      if (ranks_before(ov2, os2, bv, bs)) {
+        bv = ov2;
+        bs = os2;
+      }
+    }
+    if (lane == 0) {
+      ov[qg * topc + k] = bv;
+      oi[qg * topc + k] = pi[bs];
+      pv[bs] = NAN;  // taken: never ranks again
+    }
+    __syncwarp();
+  }
+  float m = -INFINITY;
+  for (int i = lane; i < W; i += 32) m = fmaxf(m, pb[i]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if (lane == 0) ob[qg] = m;
+}
+
+// W-column groups per catalog tile: the tile budget, at least one group and
+// a multiple of `u`.  The shared memory is sized from the real tile (at
+// qw = 48 and W = 512 one group is 49,152 bytes, twice the budget).
+inline int tile_cols(int rows, int w, int u = 1) {
+  int groups = kTileBytes / (rows * w * 2);
+  groups = groups < u ? u : groups - groups % u;
+  return groups * w;
+}
+
+inline int64_t slice_count(int64_t np, int64_t slice) {
+  return np > slice ? (np + slice - 1) / slice : 1;
 }
 
 template <int W, int D, Epi E, class C>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int TQ = queries_per_block(W);
   const int rows = C::rows(a.f);
-  const int tc = tile_cols(rows, W);
-  const size_t scan_bytes = sizeof(float) * rows * TQ + 2ull * rows * tc;
-  const size_t extract_bytes =
-      a.topc ? sizeof(float) * TQ * D * W * 2 + sizeof(float) * TQ * W : 0;
-  const size_t smem = scan_bytes > extract_bytes ? scan_bytes : extract_bytes;
+  const int tc = tile_cols(rows, W, cols_per_step(W, D));
+  const size_t smem = sizeof(float) * rows * TQ + 2 * (2ull * rows * tc);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = bin_scan_kernel<W, D, E, C>;
+  auto scan = scan_kernel<W, D, E, C>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      scan, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t slice = a.slice > 0 ? a.slice : (a.np > 0 ? a.np : 1);
-  const int64_t slices = a.np > slice ? (a.np + slice - 1) / slice : 1;
-  const int64_t blocks = (a.b + TQ - 1) / TQ;
-  const dim3 grid(static_cast<unsigned>(blocks),
+  const int64_t slices = slice_count(a.np, slice);
+  const dim3 grid(static_cast<unsigned>((a.b + TQ - 1) / TQ),
                   static_cast<unsigned>(slices));
-  kernel<<<grid, W, smem, stream>>>(
+  scan<<<grid, W, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q2), a.b, a.f,
       static_cast<const __nv_bfloat16*>(a.ft), a.ft_stride, a.np, tc, slice,
-      a.topc, a.epi, static_cast<float*>(a.ov), static_cast<int32_t*>(a.oi),
+      a.epi, static_cast<float*>(a.wv), static_cast<int32_t*>(a.wi),
+      static_cast<float*>(a.wb));
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !a.merge) return static_cast<int>(e);
+  constexpr int R = merge_groups(W);
+  const size_t msmem = sizeof(float) * R * (2 * D * W + W);
+  merge_kernel<W, D><<<static_cast<unsigned>(a.b), W * R, msmem, stream>>>(
+      static_cast<const float*>(a.wv), static_cast<const int32_t*>(a.wi),
+      static_cast<const float*>(a.wb), slices, a.b, a.topc,
+      static_cast<float*>(a.ov), static_cast<int32_t*>(a.oi),
       static_cast<float*>(a.ob));
   return static_cast<int>(cudaGetLastError());
 }
 
-// W bins: a multiple of 128, at most kMaxBins, dividing np (and a slice).
+// W bins: a multiple of 128, at most kMaxBins, dividing np and the slice;
+// the compact output needs the merge, one slice without it.
 inline bool args_ok(const Args& a, int w, int d) {
   return w >= 128 && w <= kMaxBins && w % 128 == 0 && a.np % w == 0 &&
          a.f >= 1 && a.topc >= 0 && a.topc <= d * w && a.np < INT_MAX &&
          a.slice >= 0 && a.slice % w == 0 &&
-         (a.slice == 0 ||
-          (a.topc == 0 && (a.np + a.slice - 1) / a.slice <= 65535));
+         slice_count(a.np, a.slice > 0 ? a.slice : (a.np > 0 ? a.np : 1)) <=
+             (a.merge ? kMaxSlices : 1) &&
+         (a.merge || a.topc == 0);
 }
 
 template <int D, Epi E, class C>

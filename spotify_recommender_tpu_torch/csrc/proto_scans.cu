@@ -34,13 +34,16 @@
 //   maxima and nothing else.  Its blocks cover (query tile x catalog
 //   slice), so every SM works at any B, and a second kernel takes the max
 //   over the slices (exact, so the result does not depend on the split);
-// - `scan_d1_split` splits the catalog the same way: each block walks one
-//   slice (a multiple of W columns) and writes its slice's depth-1
-//   structures; `d1_merge` folds the slices in order: v1 is the max, the
-//   earlier slice (the lower column) wins ties, and the bound is
-//   max(b_a, b_b, min(v1_a, v1_b)).  Max and min are exact, so the result
-//   is bitwise the single walk's.  The wrappers (ops/cuda/proto_scans.py)
-//   pick the slices so that the grid covers the card several times over.
+// - `scan_d1_split` splits the catalog the same way: it is bin_scan.cuh's
+//   two kernels at depth 1 (each block walks one slice, a multiple of W
+//   columns, and writes its slice's depth-1 structures; the merge folds
+//   the slices in order: the earlier slice, the lower column, wins ties,
+//   and the bound is max(b_a, b_b, min(v1_a, v1_b))).  Max and min are
+//   exact, so the result is bitwise the single walk's.  The wrappers
+//   (ops/cuda/proto_scans.py) pick the slices so that the grid covers the
+//   card several times over;
+// - `scan_d1` and `proto_scan` keep the prototypes' single walk: the scan
+//   kernel over one slice, writing the outputs directly.
 
 #include "bin_scan.cuh"
 
@@ -56,10 +59,6 @@ constexpr int kMxuTQ = 16;    // queries per mxu_only block
 constexpr int kMergeThreads = 256;
 
 int err_invalid() { return static_cast<int>(cudaErrorInvalidValue); }
-
-int64_t slice_count(int64_t np, int64_t slice) {
-  return np > slice ? (np + slice - 1) / slice : 1;
-}
 
 unsigned merge_blocks(int64_t n) {
   return static_cast<unsigned>((n + kMergeThreads - 1) / kMergeThreads);
@@ -90,12 +89,12 @@ __global__ void __launch_bounds__(kLanes)
     bin_scan::load_tile<kLanes>(tile, ft, ft_stride, base, qw, cols, tc, t);
     __syncthreads();
     for (int cc = t; cc < cols; cc += kLanes) {
-      float acc[TQ];
+      float acc[1][TQ];
 #pragma unroll
-      for (int i = 0; i < TQ; ++i) acc[i] = 0.0f;
-      Plain::dot<TQ>(qs, tile, tc, cc, qw, acc);
+      for (int i = 0; i < TQ; ++i) acc[0][i] = 0.0f;
+      Plain::dot<TQ, 1, kLanes, false>(qs, tile, tc, cc, qw, acc);
 #pragma unroll
-      for (int i = 0; i < TQ; ++i) m[i] = fmaxf(m[i], acc[i]);
+      for (int i = 0; i < TQ; ++i) m[i] = fmaxf(m[i], acc[0][i]);
     }
   }
   const int64_t row0 = static_cast<int64_t>(blockIdx.y) * b + q0;
@@ -117,33 +116,6 @@ __global__ void max_merge(const float* __restrict__ part, int64_t slices,
   out[i] = m;
 }
 
-// Folds per-slice depth-1 structures (slices, n) into one (n): slices in
-// ascending column order, so the strict `>` keeps the earlier slice's
-// column on ties, as the single walk's insert does.
-__global__ void d1_merge(const float* __restrict__ wv,
-                         const int32_t* __restrict__ wi,
-                         const float* __restrict__ wb, int64_t slices,
-                         int64_t n, float* __restrict__ ov,
-                         int32_t* __restrict__ oi, float* __restrict__ ob) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kMergeThreads +
-                    threadIdx.x;
-  if (i >= n) return;
-  float v = wv[i];
-  int32_t ix = wi[i];
-  float bnd = wb[i];
-  for (int64_t s = 1; s < slices; ++s) {
-    const float vs = wv[s * n + i];
-    bnd = fmaxf(fmaxf(bnd, wb[s * n + i]), fminf(v, vs));
-    if (vs > v) {
-      v = vs;
-      ix = wi[s * n + i];
-    }
-  }
-  ov[i] = v;
-  oi[i] = ix;
-  ob[i] = bnd;
-}
-
 }  // namespace
 
 // q (b, qw) bf16; ft (>= qw rows, row stride ft_stride) bf16 with np
@@ -158,8 +130,8 @@ extern "C" int srt_mxu_only(const void* q, int64_t b, int qw, const void* ft,
   if (qw < 1 || np % kLanes || np >= INT_MAX || slice < kLanes ||
       slice % kLanes)
     return err_invalid();
-  const int64_t slices = slice_count(np, slice);
-  if (slices > 65535) return err_invalid();
+  const int64_t slices = bin_scan::slice_count(np, slice);
+  if (slices > bin_scan::kMaxSlices) return err_invalid();
   const int tc = bin_scan::tile_cols(qw, kLanes);
   const size_t smem = sizeof(float) * qw * kMxuTQ + 2ull * qw * tc;
   if (smem > static_cast<size_t>(bin_scan::kMaxSmem)) return err_invalid();
@@ -187,7 +159,8 @@ extern "C" int srt_mxu_only(const void* q, int64_t b, int qw, const void* ft,
 extern "C" int srt_scan_d1(const void* q, int64_t b, int qw, const void* ft,
                            int64_t ft_stride, int64_t np, int w, void* ov,
                            void* oi, void* ob, void* stream) {
-  const Args a{q, b, qw, ft, ft_stride, np, 0, {}, ov, oi, ob};
+  const Args a{q, b, qw, ft, ft_stride, np, 0, {}, 0, ov, oi, ob, false,
+               ov, oi, ob};
   return bin_scan::dispatch_w<1, Epi::kNone, Plain>(
       a, w, static_cast<cudaStream_t>(stream));
 }
@@ -200,18 +173,11 @@ extern "C" int srt_scan_d1_split(const void* q, int64_t b, int qw,
                                  int64_t np, int w, int64_t slice, void* wv,
                                  void* wi, void* wb, void* ov, void* oi,
                                  void* ob, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (slice <= 0) return err_invalid();
-  const Args a{q, b, qw, ft, ft_stride, np, 0, {}, wv, wi, wb, slice};
-  const int err = bin_scan::dispatch_w<1, Epi::kNone, Plain>(a, w, s);
-  if (err != 0 || b == 0) return err;
-  const int64_t n = b * w;
-  d1_merge<<<merge_blocks(n), kMergeThreads, 0, s>>>(
-      static_cast<const float*>(wv), static_cast<const int32_t*>(wi),
-      static_cast<const float*>(wb), slice_count(np, slice), n,
-      static_cast<float*>(ov), static_cast<int32_t*>(oi),
-      static_cast<float*>(ob));
-  return static_cast<int>(cudaGetLastError());
+  const Args a{q, b, qw, ft, ft_stride, np, 0, {}, slice, wv, wi, wb, true,
+               ov, oi, ob};
+  return bin_scan::dispatch_w<1, Epi::kNone, Plain>(
+      a, w, static_cast<cudaStream_t>(stream));
 }
 
 // q (b, qw) bf16; qn (b,) f32 raw query norms; ft as above with np a
@@ -228,7 +194,8 @@ extern "C" int srt_proto_scan(const void* q, const void* qn, int64_t b,
   const Epilogue epi{static_cast<const float*>(qn),
                      static_cast<const float*>(cn),
                      static_cast<const int64_t*>(excl), valid, eps};
-  const Args a{q, b, qw, ft, ft_stride, np, 0, epi, ov, oi, ob};
+  const Args a{q, b, qw, ft, ft_stride, np, 0, epi, 0, ov, oi, ob, false,
+               ov, oi, ob};
   return bin_scan::dispatch_w<3, Epi::kGuardClipMask, Plain>(
       a, w, static_cast<cudaStream_t>(stream));
 }

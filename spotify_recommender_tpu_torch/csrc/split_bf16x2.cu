@@ -56,7 +56,3 @@ extern "C" int srt_split_bf16x2(const void* x, void* hi, void* lo, int64_t n,
   }
   return static_cast<int>(cudaGetLastError());
 }
-
-extern "C" const char* srt_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}

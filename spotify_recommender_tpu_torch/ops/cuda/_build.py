@@ -1,28 +1,38 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-All sources under `spotify_recommender_tpu_torch/csrc/*.cu` (with the
-headers `csrc/*.cuh` they include) go into one shared library with a plain
-C interface.  Each source compiles in its own nvcc process, all started
-together, and one more call links them:
+The sources under `spotify_recommender_tpu_torch/csrc/` go into two shared
+libraries with a plain C interface, each built at its own first use:
+
+    SERVING      split_bf16x2.cu, scan_v3.cu, scan_v2.cu, fused_topk.cu:
+                 the kernels of the user paths (ops/cuda/split, scan_v3,
+                 scan_v2, fused), libsrt_serving.so
+    EXPERIMENTS  proto_scans.cu, ablation_r2.cu: the probes of
+                 `experiments/` (ops/cuda/proto_scans, ablation),
+                 libsrt_experiments.so
+
+Both also compile `errors.cu` (the error message of a CUDA code), and both
+hash every `csrc/*.cuh`.  Each source compiles in its own nvcc process,
+all started together, and one more call links them:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler \\
          -fPIC -Xptxas=-v -c csrc/<name>.cu -o <name>.o       (in parallel)
-    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libsrt_kernels.so *.o
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o libsrt_<lib>.so *.o
 
 No `--use_fast_math`: flush-to-zero would flush tiny unit-vector
 components, and the certificate's error bound assumes round-to-nearest
 fp32 (see ops/fused_topk.BF16X2_EPS).
 
-The library is built at first use into `spotify_recommender_tpu_torch/
-_build/<hash of the sources>/`, so a fresh checkout builds it on the first
-kernel launch and an edited source rebuilds it; `nvcc.log` beside the
-library keeps ptxas's report of each kernel's registers and spills.  A
-missing nvcc or a failed build raises; nothing falls back.
+A library is built into `spotify_recommender_tpu_torch/_build/<hash of its
+name, flags and sources>/`, so a fresh checkout builds it on the first
+launch of one of its kernels and an edited source rebuilds it; `nvcc.log`
+beside the library keeps ptxas's report of each kernel's registers and
+spills.  A missing nvcc or a failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -33,7 +43,6 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_ROOT = PKG_DIR / "_build"
-LIB_NAME = "libsrt_kernels.so"
 LOG_NAME = "nvcc.log"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -43,8 +52,28 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
-# C entry points: name -> argtypes (each returns cudaGetLastError() as int)
-_SIGNATURES = {
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Library:
+    """One kernel library: its sources under csrc/ and its C entry points
+    (name -> argtypes; each returns cudaGetLastError() as an int)."""
+
+    name: str
+    sources: tuple
+    signatures: dict
+
+    @property
+    def file_name(self) -> str:
+        return f"libsrt_{self.name}.so"
+
+    def paths(self) -> list:
+        return [CSRC_DIR / s for s in self.sources]
+
+
+SERVING = Library("serving", (
+    "errors.cu", "split_bf16x2.cu", "scan_v3.cu", "scan_v2.cu", "fused_topk.cu",
+), {
     # q, qn, ft, ft_sd, ft_sc, cn, excl, b, fq, fc, np, valid, k, exact,
     # bf16, eps, nsplit, split_cols, pv, pc, ov, oi, stream
     "srt_fused_topk": (_P, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64,
@@ -52,13 +81,19 @@ _SIGNATURES = {
                        _P, _P, _P, _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
-    # q2, b, f, ft, ft_stride, np, w, depth, topc, ov, oi, ob, stream
-    "srt_scan_v3": (_P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I32, _P, _P,
-                    _P, _P),
-    # q2, qn, b, f, ft, ft_stride, cn, np, excl, valid, eps, w, topc, ov,
+    # q2, b, f, ft, ft_stride, np, w, depth, topc, slice, wv, wi, wb, ov,
     # oi, ob, stream
+    "srt_scan_v3": (_P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I32, _I64,
+                    _P, _P, _P, _P, _P, _P, _P),
+    # q2, qn, b, f, ft, ft_stride, cn, np, excl, valid, eps, w, topc, slice,
+    # wv, wi, wb, ov, oi, ob, stream
     "srt_scan_v2": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _P, _I64, _F32,
-                    _I32, _I32, _P, _P, _P, _P),
+                    _I32, _I32, _I64, _P, _P, _P, _P, _P, _P, _P),
+})
+
+EXPERIMENTS = Library("experiments", (
+    "errors.cu", "proto_scans.cu", "ablation_r2.cu",
+), {
     # q, b, qw, ft, ft_stride, np, slice, part, out, stream
     "srt_mxu_only": (_P, _I64, _I32, _P, _I64, _I64, _I64, _P, _P, _P),
     # q, b, qw, ft, ft_stride, np, w, ov, oi, ob, stream
@@ -74,16 +109,14 @@ _SIGNATURES = {
     # width, eps, out_s, out_i, dmax, dg, stream
     "srt_ablation": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I32,
                      _I32, _I32, _I32, _I32, _F32, _P, _P, _P, _P, _P),
-}
+})
+
+LIBRARIES = (SERVING, EXPERIMENTS)
 
 
-def sources() -> list:
-    return sorted(CSRC_DIR.glob("*.cu"))
-
-
-def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted([*sources(), *CSRC_DIR.glob("*.cuh")]):
+def source_hash(lib: Library) -> str:
+    h = hashlib.sha256(" ".join((lib.name, *NVCC_FLAGS)).encode())
+    for path in sorted([*lib.paths(), *CSRC_DIR.glob("*.cuh")]):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -103,26 +136,26 @@ def nvcc_path() -> str:
     return str(nvcc)
 
 
-def build() -> Path:
-    """Compile the library if this source hash has not been built yet;
-    returns its path."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib
+def build(lib: Library = SERVING) -> Path:
+    """Compile `lib` if this source hash has not been built yet; returns
+    the path of the shared library."""
+    out_dir = BUILD_ROOT / source_hash(lib)
+    so_path = out_dir / lib.file_name
+    if so_path.exists():
+        return so_path
     out_dir.mkdir(parents=True, exist_ok=True)
     # build in a private directory, then rename: a concurrent build never
     # sees a half-written library
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        objs = [str(Path(tmp) / (src.stem + ".o")) for src in sources()]
+        objs = [str(Path(tmp) / (src.stem + ".o")) for src in lib.paths()]
         log = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj]
-                    for src, obj in zip(sources(), objs)])
-        so = str(Path(tmp) / LIB_NAME)
+                    for src, obj in zip(lib.paths(), objs)])
+        so = str(Path(tmp) / lib.file_name)
         log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", so, *objs]])
         (out_dir / LOG_NAME).write_text(log)
-        os.replace(so, lib)
-    return lib
+        os.replace(so, so_path)
+    return so_path
 
 
 def _run(cmds: list) -> str:
@@ -142,20 +175,20 @@ def _run(cmds: list) -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call in this process)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+def library(lib: Library = SERVING) -> ctypes.CDLL:
+    """The loaded library `lib` (built on first call in this process)."""
+    dll = ctypes.CDLL(str(build(lib)))
+    for name, argtypes in lib.signatures.items():
+        fn = getattr(dll, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.srt_error_string.argtypes = (ctypes.c_int,)
-    lib.srt_error_string.restype = ctypes.c_char_p
-    return lib
+    dll.srt_error_string.argtypes = (ctypes.c_int,)
+    dll.srt_error_string.restype = ctypes.c_char_p
+    return dll
 
 
-def check(err: int, what: str) -> None:
-    """Raise when a C entry point reports a CUDA error."""
+def check(err: int, what: str, lib: Library = SERVING) -> None:
+    """Raise when a C entry point of `lib` reports a CUDA error."""
     if err != 0:
-        msg = library().srt_error_string(err).decode()
+        msg = library(lib).srt_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err}: {msg}")

@@ -239,14 +239,15 @@ class Body:
               if self.reduce == TOP2 else None)
         ptr = (lambda t: None if t is None else t.data_ptr())
         with torch.cuda.device(dev):
-            err = _build.library().srt_ablation(
+            err = _build.library(_build.EXPERIMENTS).srt_ablation(
                 q.data_ptr(), qn.data_ptr(), ft.data_ptr(), ft.stride(0),
                 cn.data_ptr(), ptr(ex), np_ if valid is None else as_int(valid),
                 b, f, np_, tc, int(q.dtype == torch.bfloat16), self.epi,
                 self.reduce, width, ctypes.c_float(EPS), out_s.data_ptr(),
                 ptr(out_i), dmax.data_ptr(), ptr(dg),
                 torch.cuda.current_stream().cuda_stream)
-        _build.check(err, f"{self.name} (tc={tc}, F={f}, {q.dtype})")
+        _build.check(err, f"{self.name} (tc={tc}, F={f}, {q.dtype})",
+                     _build.EXPERIMENTS)
         self.launches += 1
         out = (out_s, out_i) if index else (out_s,)
         return out, (dmax,) if dg is None else (dmax, dg)

@@ -30,7 +30,9 @@ KERNEL_MAX_BINS) and counts the launch in `<wrapper>.launches`; on CPU
 tensors it runs the plain version, which sums the same exact bf16 products
 in the kernel's order (ascending rows, one fp32 rounding each), so on the
 card the two agree bitwise.  `scan_d1_split_plain` repeats the kernel's
-per-slice walk and merge, which equal the single walk bitwise.
+per-slice walk and merge (ops/cuda/scan_v3.merge_bins at depth 1), which
+equal the single walk bitwise.  The kernels live in the experiment library
+(ops/cuda/_build.EXPERIMENTS), built at the first launch of one of them.
 """
 
 from __future__ import annotations
@@ -43,8 +45,13 @@ import torch
 
 from spotify_recommender_tpu_torch.ops.cuda import _build
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
+    H100_SMS,
     bin_structures,
     check_kernel_layout,
+    device_sms,
+    merge_bins,
+    queries_per_block,
+    split_slice,
 )
 
 LANES = 128          # mxu_only's lanes
@@ -52,33 +59,12 @@ MXU_QUERIES = 16     # queries per mxu_only block (csrc/proto_scans.cu)
 SCAN3_BINS = 256     # k_scan3's fixed W
 DEPTH3 = 3           # scan3 / proto_scan bin depth
 EPS = 1e-8           # the prototypes' guard
-H100_SMS = 132       # the schedule the plain split follows on the CPU
+LIB = _build.EXPERIMENTS
 # catalog-split grids: blocks per SM they aim for
 MXU_BLOCKS_PER_SM = 8
 D1_BLOCKS_PER_SM = 2
 
 Outs = Tuple[torch.Tensor, ...]
-
-
-def queries_per_block(w: int) -> int:
-    """Queries per block of a W-bin scan (bin_scan.cuh)."""
-    return 16 if w <= 256 else (8 if w <= 512 else 4)
-
-
-def split_slice(b: int, np_: int, w: int, tq: int, sms: int,
-                blocks_per_sm: int) -> int:
-    """Columns per catalog slice (a multiple of w) so that (query tiles x
-    slices) blocks cover `sms` SMs `blocks_per_sm` times over."""
-    tiles = -(-b // tq)
-    slices = max(1, -(-blocks_per_sm * sms // tiles))
-    per = -(-np_ // slices)
-    return max(w, -(-per // w) * w)
-
-
-def _sms(device: torch.device) -> int:
-    if device.type == "cuda":
-        return torch.cuda.get_device_properties(device).multi_processor_count
-    return H100_SMS
 
 
 def plain_dots(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
@@ -153,16 +139,16 @@ def mxu_only(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
         return mxu_only_plain(q, ft)
     _check_kernel(q, ft, LANES, "mxu_only")
     b, np_ = q.shape[0], ft.shape[1]
-    slice_ = split_slice(b, np_, LANES, MXU_QUERIES, _sms(q.device),
+    slice_ = split_slice(b, np_, LANES, MXU_QUERIES, device_sms(q.device),
                          MXU_BLOCKS_PER_SM)
     slices = max(1, -(-np_ // slice_))
     part = _empty((slices, b, LANES), torch.float32, q)
     out = _empty((b, LANES), torch.float32, q)
     with torch.cuda.device(q.device):
-        err = _build.library().srt_mxu_only(
+        err = _build.library(LIB).srt_mxu_only(
             q.data_ptr(), b, qw, ft.data_ptr(), ft.stride(0), np_, slice_,
             part.data_ptr(), out.data_ptr(), _stream())
-    _build.check(err, f"mxu_only (qw={qw})")
+    _build.check(err, f"mxu_only (qw={qw})", LIB)
     mxu_only.launches += 1
     return out
 
@@ -174,19 +160,6 @@ mxu_only.launches = 0   # kernel launches (CUDA tensors only)
 
 def scan_d1_plain(q: torch.Tensor, ft: torch.Tensor, *, w: int) -> Outs:
     return bin_structures(plain_dots(q, ft), w, 1)
-
-
-def merge_d1(parts) -> Outs:
-    """Fold depth-1 structures of consecutive catalog slices: v1 the max
-    (the earlier slice wins ties), the bound max(b_a, b_b, min(v1_a,
-    v1_b)); `d1_merge` in csrc/proto_scans.cu."""
-    v, i, bnd = parts[0]
-    for vs, is_, bs in parts[1:]:
-        bnd = torch.maximum(torch.maximum(bnd, bs), torch.minimum(v, vs))
-        take = vs > v
-        v = torch.where(take, vs, v)
-        i = torch.where(take, is_, i)
-    return v, i, bnd
 
 
 def scan_d1_split_plain(q: torch.Tensor, ft: torch.Tensor, *, w: int,
@@ -205,7 +178,7 @@ def scan_d1_split_plain(q: torch.Tensor, ft: torch.Tensor, *, w: int,
         v, i, bnd = bin_structures(dots, w, 1)
         parts.append((v, torch.where(i >= 0, i + c0, i), bnd))
         del dots
-    return merge_d1(parts)
+    return merge_bins(parts, 1)
 
 
 def scan_d1(q: torch.Tensor, ft: torch.Tensor, *, w: int,
@@ -223,10 +196,10 @@ def scan_d1(q: torch.Tensor, ft: torch.Tensor, *, w: int,
     oi = _empty((b, w), torch.int32, q)
     ob = _empty((b, w), torch.float32, q)
     with torch.cuda.device(q.device):
-        err = _build.library().srt_scan_d1(
+        err = _build.library(LIB).srt_scan_d1(
             q.data_ptr(), b, qw, ft.data_ptr(), ft.stride(0), np_, w,
             ov.data_ptr(), oi.data_ptr(), ob.data_ptr(), _stream())
-    _build.check(err, f"scan_d1 (w={w}, qw={qw})")
+    _build.check(err, f"scan_d1 (w={w}, qw={qw})", LIB)
     scan_d1.launches += 1
     return ov, oi, ob
 
@@ -243,7 +216,7 @@ def scan_d1_split(q: torch.Tensor, ft: torch.Tensor, *, w: int) -> Outs:
         return scan_d1_split_plain(q, ft, w=w)
     _check_kernel(q, ft, w, "scan_d1_split")
     b, np_ = q.shape[0], ft.shape[1]
-    slice_ = split_slice(b, np_, w, queries_per_block(w), _sms(q.device),
+    slice_ = split_slice(b, np_, w, queries_per_block(w), device_sms(q.device),
                          D1_BLOCKS_PER_SM)
     slices = max(1, -(-np_ // slice_))
     wv = _empty((slices, b, w), torch.float32, q)
@@ -253,11 +226,11 @@ def scan_d1_split(q: torch.Tensor, ft: torch.Tensor, *, w: int) -> Outs:
     oi = _empty((b, w), torch.int32, q)
     ob = _empty((b, w), torch.float32, q)
     with torch.cuda.device(q.device):
-        err = _build.library().srt_scan_d1_split(
+        err = _build.library(LIB).srt_scan_d1_split(
             q.data_ptr(), b, qw, ft.data_ptr(), ft.stride(0), np_, w, slice_,
             wv.data_ptr(), wi.data_ptr(), wb.data_ptr(), ov.data_ptr(),
             oi.data_ptr(), ob.data_ptr(), _stream())
-    _build.check(err, f"scan_d1_split (w={w}, qw={qw}, slice={slice_})")
+    _build.check(err, f"scan_d1_split (w={w}, qw={qw}, slice={slice_})", LIB)
     scan_d1_split.launches += 1
     return ov, oi, ob
 
@@ -301,11 +274,11 @@ def _launch_proto(q, qn, ft, cn, excl, valid: int, w: int, eps: float,
     oi = _empty((b, DEPTH3 * w), torch.int32, q)
     ob = _empty((b, w), torch.float32, q)
     with torch.cuda.device(q.device):
-        err = _build.library().srt_proto_scan(
+        err = _build.library(LIB).srt_proto_scan(
             q.data_ptr(), qn.data_ptr(), b, qw, ft.data_ptr(), ft.stride(0),
             cn.data_ptr(), np_, excl.data_ptr(), valid, ctypes.c_float(eps),
             w, ov.data_ptr(), oi.data_ptr(), ob.data_ptr(), _stream())
-    _build.check(err, f"{what} (w={w}, qw={qw})")
+    _build.check(err, f"{what} (w={w}, qw={qw})", LIB)
     return ov, oi, ob
 
 

@@ -25,10 +25,11 @@ ties; a -inf score never enters) and its 4th-best value.  Output:
 
 This is what the TPU kernel `_scan_kernel` (spotify_recommender_tpu/ops/
 pallas/fused_topk.py:834) computes.  On a CUDA tensor `scan_v2` launches
-the hand-written kernel (`csrc/scan_v2.cu` over `csrc/bin_scan.cuh`, w a
-multiple of 128 up to KERNEL_MAX_BINS); on a CPU tensor it runs
-`scan_v2_plain`, which sums the same 4F products in the kernel's order: on
-the card the two agree bitwise.
+the hand-written kernels (`csrc/scan_v2.cu` over `csrc/bin_scan.cuh`, w a
+multiple of 128 up to KERNEL_MAX_BINS): kernel 1's catalog-split scan and
+merge (ops/cuda/scan_v3.py) with the epilogue inside the scan.  On a CPU
+tensor it runs `scan_v2_plain`, which sums the same 4F products in the
+kernel's order: on the card the two agree bitwise.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
     bin_structures,
     check_kernel_layout,
     check_scan_inputs,
+    scan_scratch,
     split_plane_dots,
     top_slots,
 )
@@ -112,6 +114,7 @@ def scan_v2(
             and excl.is_contiguous()):
         raise ValueError("scan_v2: qn, norms and excl must be contiguous")
     width = topc if topc else DEPTH * w
+    slice_, wv, wi, wb = scan_scratch(b, np_, w, DEPTH, q2.device)
     ov = torch.empty((b, width), dtype=torch.float32, device=q2.device)
     oi = torch.empty((b, width), dtype=torch.int32, device=q2.device)
     ob = torch.empty((b, 1 if topc else w), dtype=torch.float32,
@@ -120,10 +123,11 @@ def scan_v2(
         err = _build.library().srt_scan_v2(
             q2.data_ptr(), qn.data_ptr(), b, f, ft.data_ptr(), ft.stride(0),
             norms.data_ptr(), np_, excl.data_ptr(), int(valid),
-            ctypes.c_float(eps), w, topc, ov.data_ptr(), oi.data_ptr(),
+            ctypes.c_float(eps), w, topc, slice_, wv.data_ptr(),
+            wi.data_ptr(), wb.data_ptr(), ov.data_ptr(), oi.data_ptr(),
             ob.data_ptr(), torch.cuda.current_stream().cuda_stream,
         )
-    _build.check(err, f"scan_v2 (w={w}, F={f})")
+    _build.check(err, f"scan_v2 (w={w}, F={f}, slice={slice_})")
     scan_v2.launches += 1
     return ov, oi, ob
 

@@ -15,7 +15,11 @@ paths):
   (reference skips the query index during heap fill, Recommender.cu:296).
 
 This module is the *oracle* the certified tier is held against, and the
-fallback that serves the queries whose certificate fails.
+fallback that serves the queries whose certificate fails.  The certified
+tier scores both its rerank and its fallback with `fixed_order_dots` (the
+`fixed_order=True` oracle below), so a certified answer is bitwise what its
+own oracle returns; the "oracle" backend and the default here keep the
+matrix product.
 """
 
 from __future__ import annotations
@@ -43,20 +47,40 @@ def row_norms(x: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(x.to(torch.float32), dim=1)
 
 
+def fixed_order_dots(queries: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """fp32 dots q . x over the last axis, summed in ascending feature
+    order with one rounding per step: `torch.mul`, then `torch.add`, as
+    separate ops.  No matmul, bmm or addcmul: their order is the library's,
+    and a fused multiply-add rounds once where this rounds twice.  CPU and
+    CUDA elementwise fp32 both round to nearest, so the bits are the same
+    on both and for any batch shape.  `queries` (..., F) broadcasts against
+    `rows` (..., F): (m, 1, F) against gathered (m, C, F) rows, or against
+    (1, N, F) for a whole catalog."""
+    acc = torch.mul(queries[..., 0], rows[..., 0])
+    for j in range(1, queries.shape[-1]):
+        acc.add_(torch.mul(queries[..., j], rows[..., j]))
+    return acc
+
+
 def cosine_scores_batched(
     queries: torch.Tensor,
     features: torch.Tensor,
     norms: Optional[torch.Tensor] = None,
     eps: float = COSINE_EPS,
+    fixed_order: bool = False,
 ) -> torch.Tensor:
     """Cosine similarity of a query batch (B, F) against the catalog (N, F):
-    clamp(dot / (|q| |x|), -1, 1) where the denominator > eps, else 0."""
+    clamp(dot / (|q| |x|), -1, 1) where the denominator > eps, else 0.  The
+    dots are one fp32 matrix product, or `fixed_order_dots`."""
     queries = queries.to(torch.float32)
     features = features.to(torch.float32)
     if norms is None:
         norms = row_norms(features)
     q_norms = row_norms(queries)
-    dots = queries @ features.T
+    if fixed_order:
+        dots = fixed_order_dots(queries[:, None, :], features[None, :, :])
+    else:
+        dots = queries @ features.T
     denom = q_norms[:, None] * norms[None, :]
     guard = denom > eps
     return torch.where(
@@ -106,11 +130,12 @@ def exact_topk_iterative(
     exclude_rows: Optional[torch.Tensor] = None,
     k: int = 10,
     eps: float = COSINE_EPS,
+    fixed_order: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Oracle-exact top-k via k rounds of max + first-occurrence argmax
     (`torch.argmax` documents that it returns the first maximal index), with
     each winner masked before the next round."""
-    scores = cosine_scores_batched(queries, features, norms, eps)
+    scores = cosine_scores_batched(queries, features, norms, eps, fixed_order)
     if exclude_rows is not None:
         scores = _mask_self(scores, exclude_rows)
     rows = torch.arange(scores.shape[0], device=scores.device)
@@ -131,6 +156,7 @@ def exact_topk_chunked(
     k: int = 10,
     eps: float = COSINE_EPS,
     chunk: int = 131072,
+    fixed_order: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact retrieval over catalog chunks in ascending index order.
 
@@ -148,7 +174,8 @@ def exact_topk_chunked(
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
     for off in range(0, n, chunk):
         scores = cosine_scores_batched(
-            queries, features[off:off + chunk], norms[off:off + chunk], eps
+            queries, features[off:off + chunk], norms[off:off + chunk], eps,
+            fixed_order,
         )
         if exclude_rows is not None:
             scores = _mask_self(scores, exclude_rows.long() - off)

@@ -3,9 +3,11 @@ JAX package's oracle: the cases of tests/test_certified.py, plus the
 Retriever around it.
 
 In every case but the near-tie one (see there) the port's indices equal
-`exact_topk` of the JAX package.  Scores: the rerank (a gathered batched product), the port's oracle and the
-JAX oracle sum fp32 dots in different orders, so scores are compared
-within 1e-6 (a few ulp at magnitude <= 1) unless the case pins them.
+`exact_topk` of the JAX package.  Scores: the port's rerank and its
+certified oracle both sum in fixed feature order
+(`similarity.fixed_order_dots`), the JAX oracle in XLA's, so scores are
+compared within 1e-6 (a few ulp at magnitude <= 1) unless the case pins
+them.
 """
 
 import logging
@@ -167,11 +169,12 @@ class TestAdversarial:
         cr, s, i = certified(feats, norms, q, 10)
         assert cr.fallbacks >= 1      # the certificate must not bluff here
         # the scores tie to ~1e-7, so their order is decided by fp32
-        # rounding, which differs between torch's and XLA's products: the
-        # port is held to its own oracle (the certificate's contract) and to
-        # the JAX oracle's scores
-        ts, ti = tsim.exact_topk(torch.from_numpy(q), torch.from_numpy(feats),
-                                 torch.from_numpy(norms), k=10)
+        # rounding, which differs between the fixed feature order and XLA's
+        # product: the port is held to its own fixed-order oracle (the
+        # certificate's contract), bitwise, and to the JAX oracle's scores
+        ts, ti = tsim.exact_topk_iterative(
+            torch.from_numpy(q), torch.from_numpy(feats),
+            torch.from_numpy(norms), k=10, fixed_order=True)
         np.testing.assert_array_equal(i, ti.numpy())
         np.testing.assert_array_equal(s, ts.numpy())
         np.testing.assert_allclose(s, oracle(q, feats, norms, 10)[0], rtol=0,

@@ -27,7 +27,11 @@ from spotify_recommender_tpu_torch.ops.cuda.fused import (
     fused_topk_plain,
 )
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import scan_v2, scan_v2_plain
-from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import scan_v3, scan_v3_plain
+from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
+    scan_slice,
+    scan_v3,
+    scan_v3_plain,
+)
 from spotify_recommender_tpu_torch.ops.cuda.split import (
     split_bf16x2,
     split_bf16x2_plain,
@@ -158,6 +162,23 @@ def test_scan_error_within_bf16x2_eps(cuda):
     assert err <= BF16X2_EPS, err
 
 
+def assert_certified_contract(s, i, q, f, norms, rows, k=10):
+    """Index for index the fixed-order oracle's over the same rows and
+    norms, bitwise; against the cuBLAS oracle, scores within 1e-6 and
+    indices wherever neighbouring oracle scores are more than 2e-6 apart."""
+    r = torch.from_numpy(rows).to(f.device)
+    fs, fi = similarity.exact_topk_chunked(q, f, norms, exclude_rows=r, k=k,
+                                           fixed_order=True)
+    assert torch.equal(i, fi) and torch.equal(s, fs)
+    rs, ri = similarity.exact_topk_chunked(q, f, norms, exclude_rows=r, k=k)
+    assert (s - rs).abs().max().item() <= 1e-6
+    gaps = (rs[:, :-1] - rs[:, 1:]) > 2e-6
+    ones = torch.ones_like(gaps[:, :1])
+    sep = torch.cat([ones, gaps], 1) & torch.cat([gaps, ones], 1)
+    sep[:, -1] = False
+    assert torch.equal(i[sep], ri[sep])
+
+
 def test_certified_matches_oracle_on_card(cuda):
     rng = np.random.default_rng(3)
     n, b = 30011, 64
@@ -166,12 +187,8 @@ def test_certified_matches_oracle_on_card(cuda):
     cr = CertifiedRetriever(feats, None, None, cuda)
     s, i = cr(feats[rows], 10, exclude_rows=rows)
     f = torch.from_numpy(feats).to(cuda)
-    norms = torch.from_numpy(np.linalg.norm(feats, axis=1)).to(cuda)
-    r = torch.from_numpy(rows).to(cuda)
-    rs, ri = similarity.exact_topk_chunked(f[r], f, norms, exclude_rows=r, k=10)
-    assert torch.equal(i, ri)
-    # rerank (gathered bmm) and oracle (matmul) sum in different orders
-    assert (s - rs).abs().max().item() <= 1e-6
+    assert_certified_contract(s, i, f[torch.from_numpy(rows).to(cuda)], f,
+                              cr.layout.norms1d, rows)
 
 
 @pytest.mark.parametrize("config", [RetrievalConfig(scan="v2"),
@@ -185,11 +202,62 @@ def test_certified_wide_and_v2_match_oracle_on_card(cuda, config):
     assert cr.layout.w == 512
     s, i = cr(feats[rows], 10, exclude_rows=rows)
     f = torch.from_numpy(feats).to(cuda)
-    norms = similarity.row_norms(f)
-    r = torch.from_numpy(rows).to(cuda)
-    rs, ri = similarity.exact_topk_chunked(f[r], f, norms, exclude_rows=r, k=10)
-    assert torch.equal(i, ri)
-    assert (s - rs).abs().max().item() <= 1e-6
+    assert_certified_contract(s, i, f[torch.from_numpy(rows).to(cuda)], f,
+                              cr.layout.norms1d, rows)
+
+
+def _split_scan_inputs(cuda, b, w, seed):
+    """157 w-column groups at B = 1024, 2213 below (each slice then holds
+    several groups; the last slice is ragged at every B), the w columns
+    before each slice edge of the depth-2 split copied after it (ties
+    across the edge), the last 2w columns zero, and queries near rows."""
+    rng = np.random.default_rng(seed)
+    np_ = w * (157 if b >= 1024 else 2213)
+    feats = rng.random((np_, 12), dtype=np.float32)
+    slice_ = scan_slice(b, np_, w, 2, cuda)
+    for e in range(slice_, np_ - w + 1, slice_):
+        feats[e:e + w] = feats[e - w:e]
+    feats[np_ - 2 * w:] = 0.0
+    norms = np.linalg.norm(feats, axis=1).astype(np.float32)
+    hi, lo = split_bf16x2_plain(torch.from_numpy(
+        feats / np.maximum(norms, 1e-30)[:, None]))
+    ft = torch.cat([hi, lo], 1).t().contiguous().to(cuda)
+    q = torch.from_numpy(feats[rng.integers(0, np_ - 2 * w, b)]
+                         + 0.01 * rng.standard_normal((b, 12)).astype(
+                             np.float32)).to(cuda)
+    qn = similarity.row_norms(q)
+    qh, ql = split_bf16x2_plain(q / qn[:, None])
+    excl = torch.from_numpy(rng.integers(-1, np_, b)).to(cuda)
+    return torch.cat([qh, ql, ql, qh], 1), qn, ft, \
+        torch.from_numpy(norms).to(cuda), excl, np_ - 3 * w // 2, slice_
+
+
+@pytest.mark.parametrize("w", [128, 384, 512, 1024])
+@pytest.mark.parametrize("b", [1, 5, 32, 1024])
+def test_split_scans_bitwise_equal_plain(cuda, b, w):
+    """Kernels 1 (depth 1-4) and 4 (compact and full) over the catalog
+    split and the merge, against the single-walk plain versions."""
+    q2, qn, ft, norms, excl, valid, slice_ = _split_scan_inputs(cuda, b, w,
+                                                                b + w)
+    assert -(-ft.shape[1] // slice_) > 1 and ft.shape[1] % slice_
+    for depth in (1, 2, 3, 4):
+        before = scan_v3.launches
+        out = scan_v3(q2, ft, w=w, depth=depth, topc=32)
+        torch.cuda.synchronize()
+        assert scan_v3.launches == before + 1
+        for o, p in zip(out, scan_v3_plain(q2, ft, w=w, depth=depth,
+                                           topc=32)):
+            assert torch.equal(o, p), (depth, (o != p).sum().item())
+    for topc in (32, 0):
+        before = scan_v2.launches
+        out = scan_v2(q2, qn, ft, norms, excl, valid, w=w, eps=1e-8,
+                      topc=topc)
+        torch.cuda.synchronize()
+        assert scan_v2.launches == before + 1
+        plain = scan_v2_plain(q2, qn, ft, norms, excl, valid, w=w, eps=1e-8,
+                              topc=topc)
+        for o, p in zip(out, plain):
+            assert torch.equal(o, p), (topc, (o != p).sum().item())
 
 
 def _fused_inputs(cuda, n, b, seed):
