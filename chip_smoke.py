@@ -13,7 +13,10 @@ its plain torch version on the card, runs the reference-style CLI on a
   the cuBLAS oracle, fallbacks and escalations per batch, a
   `torch.profiler` breakdown of a batch; kernel 1 at the batch's depth-2
   scan, the 32-query depth-3 rescan and B = 1;
-- phase 7: the fused score + top-k kernel at those shapes, both modes;
+- phase 7: the fused score + top-k kernel (kernel 3) at those shapes, both
+  modes, k = 10 and 100 and B = 1, and on a tie-heavy catalog (each query's
+  row copied to both sides of a catalog split or warp edge), bitwise equal
+  to its plain version (phase 2 fails if an instance of it spills);
 - phase 8: the Retriever's "pallas" backend and an exact `FusedRetriever`;
 - phase 9: `StreamingRetriever` over a memory-mapped 4,000,000 x 12
   catalog directory, B = 256, window 1,048,576, and `retrieve --streaming`;
@@ -93,6 +96,7 @@ from spotify_recommender_tpu_torch.ops.cuda import (  # noqa: E402
     proto_scans,
 )
 from spotify_recommender_tpu_torch.ops.cuda.fused import (  # noqa: E402
+    _splits,
     fused_topk,
     fused_topk_plain,
 )
@@ -223,29 +227,39 @@ def dot_flops(q: torch.Tensor, ft: torch.Tensor, products: int) -> float:
     return 2.0 * q.shape[0] * ft.shape[1] * products
 
 
-def spilling_kernels(log: str) -> list:
-    """`name<template ints> bytes` of each kernel whose ptxas report in an
-    nvcc log shows spill stores."""
-    out, name = [], None
+def ptxas_reports(log: str) -> list:
+    """(`name<template args>`, registers, spill-store bytes) of each entry
+    function in an nvcc log's ptxas report."""
+    out, name, spill = [], None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
-            name = m.group(1)
+            name, spill = _short_name(m.group(1)), 0
         m = re.search(r"(\d+) bytes spill stores", ln)
-        if m and name and int(m.group(1)):
-            # the innermost name of the mangled _ZN<len><name>... path
-            parts, i = [], 3 if name.startswith("_ZN") else 2
-            while i < len(name) and name[i].isdigit():
-                j = i
-                while name[j].isdigit():
-                    j += 1
-                parts.append(name[j:j + int(name[i:j])])
-                i = j + int(name[i:j])
-            args = ",".join(re.findall(r"Li(\d+)E", name[i:]))
-            out.append(f"{parts[-1] if parts else name[:40]}<{args}> "
-                       f"{m.group(1)}")
+        if m and name:
+            spill = max(spill, int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
             name = None
     return out
+
+
+def _short_name(mangled: str) -> str:
+    """The innermost name of a mangled _ZN<len><name>... path, with its
+    integer and bool template arguments and bf16 where it takes bf16."""
+    parts, i = [], 3 if mangled.startswith("_ZN") else 2
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    rest = mangled[i:]
+    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
+    if "bfloat16" in rest.split("EEv")[0]:
+        args.append("bf16")
+    return f"{parts[-1] if parts else mangled[:40]}<{','.join(args)}>"
 
 
 def check_bitwise(out, plain, what: str) -> float:
@@ -533,18 +547,23 @@ def main() -> None:
     with concurrent.futures.ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
         jobs = {lib.name: pool.submit(build, lib) for lib in _build.LIBRARIES}
         built = {name: job.result() for name, job in jobs.items()}
-    line = []
+    line, fused_regs = [], []
     for lib in _build.LIBRARIES:
         path, secs = built[lib.name]
-        log = (path.parent / _build.LOG_NAME).read_text()
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", log)]
-        spills = sum(int(x) for x in re.findall(r"(\d+) bytes spill stores",
-                                                log))
+        reports = ptxas_reports((path.parent / _build.LOG_NAME).read_text())
+        regs = [r for _, r, _ in reports]
+        spills = [f"{nm} {sp}" for nm, _, sp in reports if sp]
         line.append(f"{path.name} ({len(lib.sources)} sources) in {secs:.1f} s, "
                     f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-                    f"{spills} bytes of spill stores"
-                    + (f" ({', '.join(spilling_kernels(log))})" if spills else ""))
-    print("phase 2 build (both libraries at once): " + "; ".join(line))
+                    + (f"spill stores in {', '.join(spills)}" if spills
+                       else "no spill stores"))
+        fused_regs += [(nm, r, sp) for nm, r, sp in reports
+                       if nm.startswith("fused_partial_kernel")]
+    check(len(fused_regs) == 9 and not any(sp for *_, sp in fused_regs),
+          f"kernel 3's instances: {fused_regs} (9 expected, none spilling)")
+    print("phase 2 build (both libraries at once): " + "; ".join(line)
+          + "; kernel 3 (fused_partial_kernel<KPL,EXACT>) registers: "
+          + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill")
 
     # ---- 3. split: kernel vs plain, bitwise
     rng = np.random.default_rng(0)
@@ -735,25 +754,54 @@ def main() -> None:
     # on the prenormalized operands (TF32 off)
     lib_fp32 = sync_ms(lambda: torch.topk(torch.mm(qunit, modes[False][1]), k),
                        10)
+    # a tie-heavy catalog: each query's own row copied to both sides of a
+    # catalog split edge or of a warp's 32-column edge (columns e - 1 and
+    # e), so its best scores tie across the edge
+    split_cols = _splits(b, n, DEV)[1]
+    edges = list(range(split_cols, n, split_cols))
+    edges += sorted(rng0.choice(np.arange(32, n, 32), b - len(edges),
+                                replace=False).tolist())
+    at = torch.tensor(edges, device=DEV)
+    dup = f_dev.clone()
+    dup[at - 1] = dup[at] = queries
+    n_dup = similarity.row_norms(dup)
+    ties = {True: (queries, qn, dup.t().contiguous(), n_dup, excl, n),
+            False: (qunit, qn, (dup / n_dup.clamp_min(1e-30)[:, None]).t()
+                    .contiguous(), n_dup, excl, n)}
+    del dup
+    tie_top, k100 = {}, {}
     for exact, (qq, ft3, tol) in modes.items():
         args = (qq, qn, ft3, n_dev, excl, n)
         kv, ki, err = compare_fused(args, k, exact, f"fused exact={exact}")
         fused_err = max(fused_err, err)
-        oerr, ties = compare_oracle(kv, ki, rs, ri, tol, f"fused exact={exact}")
+        oerr, near = compare_oracle(kv, ki, rs, ri, tol, f"fused exact={exact}")
+        k100[exact] = compare_fused(args, 100, exact,
+                                    f"fused exact={exact} k=100")
+        err100 = k100[exact][2]
+        tv, _, err_t = compare_fused(ties[exact], k, exact,
+                                      f"fused exact={exact}, tie-heavy")
+        fused_err = max(fused_err, err100, err_t)
+        # queries whose two best are equal values at two columns
+        tie_top[exact] = int((tv[:, 0] == tv[:, 1]).sum().item())
+        check(tie_top[exact] >= b // 2, f"tie-heavy: {tie_top[exact]} ties")
         t_k = sync_ms(lambda: fused_topk(*args, k=k, exact=exact), 20)
         t_p = sync_ms(lambda: fused_topk_plain(*args, k=k, exact=exact), 3)
+        t_100 = sync_ms(lambda: fused_topk(*args, k=100, exact=exact), 10)
         t_1 = sync_ms(lambda: fused_topk(qq[:1], qn[:1], ft3, n_dev, excl[:1],
                                          n, k=k, exact=exact), 50)
+        t_tie = sync_ms(lambda: fused_topk(*ties[exact], k=k, exact=exact), 10)
         fused_times[exact] = (t_k, t_p)
         if exact:          # exact products need fp32, outside the tensor cores
             fused_bound = bound(dot_flops(qq, ft3, ft3.shape[0]), "fp32",
                                 *args[:5], kv, ki)
         line.append(
-            f"exact={exact}: bitwise equal to plain; vs oracle max score diff "
-            f"{oerr:.3g}, {ties} near-tie positions differ; kernel {t_k:.3f} "
-            f"ms vs plain {t_p:.3f} ms; B=1 kernel {t_1:.4f} ms")
-    args = (queries, qn, modes[True][1], n_dev, excl, n)
-    kv, ki, err = compare_fused(args, 100, True, "fused k=100")
+            f"exact={exact}: bitwise equal to plain at k={k}, k=100 and on "
+            f"the tie-heavy catalog ({tie_top[exact]} queries tie at the top); "
+            f"vs oracle max score diff {oerr:.3g}, {near} near-tie positions "
+            f"differ; kernel {t_k:.3f} ms vs plain {t_p:.3f} ms; k=100 "
+            f"{t_100:.3f} ms; B=1 {t_1:.4f} ms; tie-heavy {t_tie:.3f} ms")
+    del ties
+    kv, ki, _ = k100[True]
     rs100, ri100 = similarity.exact_topk_chunked(queries, f_dev, n_dev,
                                                  exclude_rows=excl, k=100)
     oerr100, ties100 = compare_oracle(kv, ki, rs100, ri100, TOL_EXACT, "k=100")
@@ -762,11 +810,10 @@ def main() -> None:
     check(bool(((ki == -1).sum(dim=1) >= k - 5).all())
           and torch.equal(ki == -1, kv == float("-inf")),
           "unfilled slots are not (-inf, -1)")
-    fused_err = max(fused_err, err, err2)
+    fused_err = max(fused_err, err2)
     print(f"phase 7 fused kernel: N={n} B={b} k={k}; " + "; ".join(line)
-          + f"; k=100 bitwise equal to plain, vs oracle {oerr100:.3g} "
-          f"({ties100} near-tie diffs); 5 valid columns, k={k}: bitwise "
-          "equal, unfilled slots (-inf, -1)")
+          + f"; k=100 vs oracle {oerr100:.3g} ({ties100} near-tie diffs); 5 "
+          f"valid columns, k={k}: bitwise equal, unfilled slots (-inf, -1)")
 
     # ---- 8. the "pallas" backend and an exact FusedRetriever
     rp = Retriever(cat, RetrievalConfig(exact_scores=False), DEV)
@@ -988,6 +1035,11 @@ def main() -> None:
             qb = torch.cat([hi, lo, lo, hi], dim=1)
         args = (qb, qn, fr11.features_t, fr11.norms, excl, n)
         kv, ki, kerr = compare_fused(args, k, False, f"fused {dtype}")
+        kerr = max(kerr, compare_fused(args, 100, False,
+                                       f"fused {dtype} k=100")[2])
+        t100 = sync_ms(lambda: fused_topk(*args, k=100, exact=False), 10)
+        t1k = sync_ms(lambda: fused_topk(qb[:1], qn[:1], *args[2:4], excl[:1],
+                                         n, k=k, exact=False), 50)
         if dtype == "bfloat16":        # a bf16 product and a top-k
             lib = sync_ms(lambda: torch.topk(torch.mm(qb, fr11.features_t), k),
                           10)
@@ -1008,9 +1060,10 @@ def main() -> None:
         t_b = wall_ms(lambda: fr11(queries, k, excl), 20)
         t_1 = wall_ms(lambda: fr11(q1, k, e1), 20)
         line.append(
-            f"{dtype}: {launches[kname]} launch, bitwise equal to plain, kernel "
-            f"{kernels[kname]['ms']:.3f} ms vs plain "
-            f"{kernels[kname]['plain_ms']:.3f} ms; recall@{k} {rec:.4f}, max "
+            f"{dtype}: {launches[kname]} launch, bitwise equal to plain at "
+            f"k={k} and k=100, kernel {kernels[kname]['ms']:.3f} ms vs plain "
+            f"{kernels[kname]['plain_ms']:.3f} ms, k=100 {t100:.3f} ms, B=1 "
+            f"{t1k:.4f} ms; recall@{k} {rec:.4f}, max "
             f"score diff where indices agree {oerr:.3g} (limit {tol:.3g}); "
             f"batch {t_b:.3f} ms ({b / t_b * 1e3:.0f} q/s); B=1 {t_1:.3f} ms")
         del fr11

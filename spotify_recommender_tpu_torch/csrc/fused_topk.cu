@@ -29,39 +29,102 @@
 //   on equal values; unfilled slots hold (-inf, -1).
 //
 // What bounds it on an H100: fp32 issue.  B x Np x F multiplies and as many
-// adds, plus the division epilogue per (query, column): at B = 1024,
-// Np = 1M, F = 12 that is 25 G fp32 operations and 1 G divisions, against
-// 48 bytes of catalog per column.  The top-k is cheap once a query's k-th
-// best value has risen above almost every new score.
+// adds (never contracted into an FMA, so one instruction per flop), plus the
+// epilogue per (query, column): at B = 1024, Np = 1M, F = 12 that is 25 G
+// fp32 instructions, against 48 bytes of catalog per column.  The top-k is
+// cheap once a query's k-th best value has risen above almost every new
+// score, as long as the scores that cannot enter cost no more than a compare.
 //
-// Design, right before fast:
+// Design:
 //
 // - the grid is (query tiles of TQ = 16) x (catalog splits).  A split is a
 //   contiguous column range, so even B = 1 fills the card (the lesson of
 //   the v3 scan, whose one block per query tile walked the whole catalog);
-// - a block of 128 threads walks its split in tiles of 128 columns, one
-//   column per thread: the thread reads the column's F values (coalesced in
-//   the transposed layout; any strides are accepted, so a row-major window
-//   is read in place) and scores it against the tile's 16 queries, whose
-//   values sit in shared memory as float4 broadcasts;
-// - the tile's 16 x 128 scores go to shared memory, and each warp updates
-//   the running top-k of 4 of the queries: a ballot finds the columns above
-//   the query's k-th best, and each such column, in ascending order, is
-//   inserted into a sorted list spread over the warp's registers (entry
-//   j = 32*i + lane in slot i).  Columns arrive in ascending order, so an
-//   insert after the equal values keeps the lowest column first, as the
-//   TPU's sequential grid and its `>=` insert count do;
-// - each block writes one sorted partial list per (query, split); a second
-//   kernel merges the splits' lists per query, one warp per query, by k
-//   rounds of a warp-wide pick of the best list head (value descending,
-//   column ascending).
+// - a block of 4 warps walks its split in tiles of 128 columns, one column
+//   per thread: warp w owns columns base + 32*w + lane of each tile, so each
+//   warp sees its own columns in ascending order.  The thread reads the
+//   column's Fq values (coalesced in the transposed layout; any strides are
+//   accepted, so a row-major window is read in place) and scores it against
+//   the block's 16 queries, whose values sit in shared memory as float4
+//   broadcasts, loaded once before the walk;
+// - warp-private lists: for each of the 16 queries every warp keeps its own
+//   running top-k (value descending, column ascending) over its own
+//   columns, in shared memory ([warp][query][k] values and columns;
+//   16 x 4 x k x 8 bytes, 64 KB at k = 128).  Registers would hold 16
+//   queries' lists only at k <= 32, beside the 16 scores, so one layout
+//   serves every k; an insert is rare once a list has filled;
+// - the filter sits in the warp that just scored, and costs a multiply and
+//   a compare per (query, column) (an add and a compare prenormalized): a
+//   column passes for query qq if dot >= rn(bound[qq] * ch), with ch the
+//   column's norm and bound from filter_bound (below): -inf at first,
+//   +inf for a query slot past B.  One
+//   __any_sync over the tile's 16 queries skips the rest in the common
+//   case; otherwise one __ballot_sync per query, and only the set bits get
+//   their exact score (the guard, the IEEE division, the clamp, the
+//   exclusion) and, in ascending lane order, go through list_insert if it
+//   beats the k-th best.  No score is written to shared memory, and the
+//   walk has no block barrier;
+// - the block's floor: each warp publishes, per query, the ceil(k/4)-th
+//   best value of its list in shared memory.  The 4 warps' lists then hold
+//   at least k columns at or above the least of the 4 values, so a column
+//   below it is in no top-k of the split, and no warp needs to keep it.
+//   The floor only rises, and a warp may read it late: it takes it up when
+//   it next handles a query that passed (a refresh of all 16 bounds every
+//   few tiles cost more than it saved, on the card).  Without the floor
+//   every warp would keep the top-k of its own quarter of the split, and a
+//   large k would pay for four lists' inserts;
+// - strict `>` against the warp's own k-th value, `>=` against the floor,
+//   and an insert after the entries >= the new value keep the lowest column
+//   first on equal values, because a warp's columns arrive in ascending
+//   order (as the TPU's sequential grid and its `>=` insert count do);
+// - after the walk the block folds its 4 warp lists per query in shared
+//   memory (k rounds of a pick of the best list head by value descending,
+//   column ascending; the warps' columns are disjoint) and writes one
+//   sorted partial list per (query, split); a second kernel merges the
+//   splits' lists per query, one warp per query, the same way.  A column in
+//   the split's top-k is at or above every floor and in its warp's top-k,
+//   so it enters its warp's list and stays, and the fold finds it;
+// - the wrapper sizes the splits so that (query tiles x splits) blocks fit
+//   the card's resident blocks in one wave (srt_fused_blocks_per_sm): the
+//   blocks are equal, and a second, part-filled wave would double the time.
 //
-// Limits: k <= 128 (4 list slots per lane), at most 128 splits, column
-// indices below 2^31.
+// The filter's bound: the division only where a column can still enter.
+// A column enters only if its score x > t, the warp's k-th best for the
+// query, and x >= f, the block's floor.  Let qn, cn be the raw norms, den
+// = rn(qn*cn) > eps (else x = 0) and, in exact mode, x = clamp(rn(dot /
+// den), -1, 1).
+//
+//   t >= 1, or a zero query (qn = 0, so every score is 0) with t >= 0:
+//   nothing exceeds t (bound +inf).  Else let u = max(t, f) <= 1 (scores
+//   are clamped); it is enough to pass every x >= u.  u < 2^-60, -inf
+//   included: every scored column passes (-inf; a zero norm counts as
+//   FLT_MIN, so -inf * ch stays -inf).  Otherwise u is a normal float in
+//   [2^-60, 1]:
+//
+//   x >= u  =>  rn(dot / den) >= u  =>  dot / den >= u * (1 - 2^-24)
+//                    (the least real that rounds to a normal u or above)
+//           =>  dot >= u * den * (1 - 2^-24)
+//           >=  u * qn * cn * (1 - 2^-24)^2    (den is qn*cn rounded once
+//                                               in the normal range)
+//           >=  bound * cn,   bound = rd(rd(u * qn) * (1 - 2^-22))
+//
+//   (__fmul_rd rounds toward -inf, so bound <= u*qn*(1 - 2^-22)).  dot, a
+//   float at or above the real bound*cn, is >= rn(bound*cn) because rn is
+//   monotone: `dot >= rn(bound * cn)` never rules out a column that would
+//   enter, subnormal dots and products included (nothing is flushed to
+//   zero).  Prenormalized (no division): for u in [2^-60, 1], clamp(dot)
+//   >= u implies dot >= u, so the bound is u itself.  A column let through
+//   that does not enter costs one exact score; padding and columns past
+//   the split carry ch = NaN and never pass; the excluded column passes at
+//   most once per walk and its exact score is -inf.  The domain: finite
+//   dots, and norms whose product is finite.
+//
+// Limits: k <= 128, at most 128 splits, column indices below 2^31.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <climits>
 #include <cmath>
 #include <cstdint>
@@ -72,10 +135,12 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;           // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kTQ = 16;                 // queries per block
-constexpr int kQPW = kTQ / kWarps;      // queries per warp in the select step
+constexpr int kQPW = kTQ / kWarps;      // queries per warp in the fold
 constexpr int kTC = kThreads;           // columns per tile: one per thread
 constexpr int kMaxSplits = 128;         // 4 per lane in the merge
 constexpr int kMergeWarps = 4;
+constexpr float kTinyT = 0x1p-60f;      // below it the filter lets all through
+constexpr float kShrink = 1.0f - 0x1p-22f;  // the exact filter's margin
 
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
@@ -88,55 +153,71 @@ __device__ __forceinline__ bool ranks_before(float av, int ac, float bv,
   return av > bv || (av == bv && ac < bc);
 }
 
-// Value of entry k-1 of a warp-spread list, on every lane.
+// Insert (s, col) into the sorted list of the first k entries at lv / lc
+// in shared memory, private to the calling warp (entry j = 32*i + lane in
+// step i).  The caller guarantees s > entry k-1 and col > every column in
+// the list, so s goes after the entries >= s and entry k-1 drops out.
+// Warp-uniform.
 template <int KPL>
-__device__ __forceinline__ float list_kth(const float (&v)[KPL], int k) {
-  const int slot = (k - 1) >> 5;
-  float x = v[0];
-#pragma unroll
-  for (int i = 1; i < KPL; ++i) x = (i == slot) ? v[i] : x;
-  return __shfl_sync(kFull, x, (k - 1) & 31);
-}
-
-// Insert (s, col) into the sorted warp-spread list of its first k entries.
-// The caller guarantees s > entry k-1 and col > every column in the list,
-// so s goes after the entries >= s and entry k-1 drops out.  Warp-uniform.
-template <int KPL>
-__device__ __forceinline__ void list_insert(float (&v)[KPL], int (&c)[KPL],
-                                            int k, float s, int col,
-                                            int lane) {
+__device__ __forceinline__ void list_insert(float* lv, int* lc, int k,
+                                            float s, int col, int lane) {
   int pos = 0;
 #pragma unroll
-  for (int i = 0; i < KPL; ++i)
-    pos += __popc(__ballot_sync(kFull, 32 * i + lane < k && v[i] >= s));
-  float nv[KPL];
-  int nc[KPL];
-#pragma unroll
   for (int i = 0; i < KPL; ++i) {
-    // entry j - 1: lane - 1 of this slot, or lane 31 of the slot before
-    const float up_v = __shfl_up_sync(kFull, v[i], 1);
-    const int up_c = __shfl_up_sync(kFull, c[i], 1);
-    float wrap_v = 0.0f;
-    int wrap_c = 0;
-    if (i > 0) {
-      wrap_v = __shfl_sync(kFull, v[i - 1], 31);
-      wrap_c = __shfl_sync(kFull, c[i - 1], 31);
-    }
-    const float prev_v = lane == 0 ? wrap_v : up_v;
-    const int prev_c = lane == 0 ? wrap_c : up_c;
     const int j = 32 * i + lane;
-    nv[i] = j < pos ? v[i] : (j == pos ? s : prev_v);
-    nc[i] = j < pos ? c[i] : (j == pos ? col : prev_c);
+    pos += __popc(__ballot_sync(kFull, j < k && lv[j] >= s));
   }
+  float prev_v[KPL];
+  int prev_c[KPL];
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
-    v[i] = nv[i];
-    c[i] = nc[i];
+    const int j = 32 * i + lane;
+    const bool moved = j > pos && j < k;
+    prev_v[i] = moved ? lv[j - 1] : s;
+    prev_c[i] = moved ? lc[j - 1] : col;
   }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < KPL; ++i) {
+    const int j = 32 * i + lane;
+    if (j >= pos && j < k) {
+      lv[j] = prev_v[i];
+      lc[j] = prev_c[i];
+    }
+  }
+  __syncwarp();
 }
 
+// The filter's per-query bound from the warp's k-th best t, the block's
+// floor f and the raw query norm qn: a column passes if dot >= rn(bound *
+// ch), ch its norm (exact), or dot >= bound + 0 (prenormalized); a column
+// whose score x > t and x >= f always passes (see the notes above).
+template <bool EXACT>
+__device__ __forceinline__ float filter_bound(float t, float f, float qn) {
+  if (t >= 1.0f || (qn == 0.0f && t >= 0.0f))
+    return INFINITY;                   // nothing exceeds t: 1, or all 0
+  const float u = fmaxf(t, f);         // <= 1: scores are clamped
+  if (!(u >= kTinyT)) return -INFINITY;  // let every column through
+  if (!EXACT) return u;
+  return __fmul_rd(__fmul_rd(u, qn), kShrink);  // <= u * qn * (1 - 2^-22)
+}
+
+// The block's floor for a query: each warp's list holds at least
+// ceil(k/4) entries >= its published value, so the block has >= k columns
+// >= their minimum and a column below it is in no top-k.  Read while other
+// warps write: any value read is one that warp held, and they only rise.
+__device__ __forceinline__ float block_floor(const volatile float* pub) {
+  return fminf(fminf(pub[0], pub[1]), fminf(pub[2], pub[3]));
+}
+
+// Resident blocks per SM that ptxas is asked to fit: at k <= 32 six
+// (80 registers), above it four, the most without a spill (the ptxas
+// report of chip_smoke.py's phase 2; five blocks ran slower at k = 64).
+template <int KPL>
+constexpr int kMinBlocks = KPL == 1 ? 6 : 4;
+
 template <int KPL, bool EXACT, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<KPL>)
     fused_partial_kernel(const T* __restrict__ q,
                          const float* __restrict__ qn,
                          const T* __restrict__ ft, int64_t ft_sd,
@@ -146,10 +227,12 @@ __global__ void __launch_bounds__(kThreads)
                          int64_t split_cols, int nsplit,
                          float* __restrict__ pv, int* __restrict__ pc) {
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;                      // [fq][kTQ] query values
-  float* sc = smem + fq * kTQ;           // [kTQ][kTC] tile scores
+  float* qs = smem;                        // [fq][kTQ] query values
+  float* lv_all = smem + fq * kTQ;         // [kWarps][kTQ][k] list values
+  int* lc_all = reinterpret_cast<int*>(lv_all + kWarps * kTQ * k);
   __shared__ float sqn[kTQ];
   __shared__ int sex[kTQ];
+  __shared__ volatile float pub[kTQ][kWarps];  // each warp's ceil(k/4)-th best
 
   const int t = threadIdx.x;
   const int lane = t & 31;
@@ -171,25 +254,26 @@ __global__ void __launch_bounds__(kThreads)
     const int64_t e = in ? excl[q0 + t] : -1;
     sex[t] = (e >= 0 && e < np) ? static_cast<int>(e) : -1;
   }
-
-  float lv[kQPW][KPL];
-  int lc[kQPW][KPL];
-  float thr[kQPW];
-#pragma unroll
-  for (int w = 0; w < kQPW; ++w) {
-#pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      lv[w][i] = -INFINITY;
-      lc[w][i] = -1;
-    }
-    thr[w] = -INFINITY;
+  for (int i = t; i < kWarps * kTQ * k; i += kThreads) {
+    lv_all[i] = -INFINITY;
+    lc_all[i] = -1;
   }
+  if (t < kTQ * kWarps) pub[t / kWarps][t % kWarps] = -INFINITY;
+  const int kq = (k + kWarps - 1) / kWarps;
+  // the filter's bound per query (filter_bound): -inf at first; +inf for
+  // a query slot past B, which then never passes
+  float bnd[kTQ];
+#pragma unroll
+  for (int qq = 0; qq < kTQ; ++qq)
+    bnd[qq] = q0 + qq < b ? -INFINITY : INFINITY;
   __syncthreads();
 
   for (int64_t base = c_begin; base < c_end; base += kTC) {
     const int64_t col = base + t;
+    const bool live = col < c_end;
     float s[kTQ];
-    if (col < c_end) {
+    float cnorm = 0.0f;
+    if (live) {
       const T* fp = ft + col * ft_sc;
       const float f0 = load(fp);
 #pragma unroll
@@ -212,60 +296,104 @@ __global__ void __launch_bounds__(kThreads)
           s[4 * j + 3] = __fadd_rn(s[4 * j + 3], __fmul_rn(a.w, fd));
         }
       }
-      const float cnorm = __ldg(cn + col);
-      const bool pad = col >= valid;
-#pragma unroll
-      for (int qq = 0; qq < kTQ; ++qq) {
-        const float den = __fmul_rn(sqn[qq], cnorm);
-        float x = 0.0f;
-        if (den > eps) {
-          x = EXACT ? __fdiv_rn(s[qq], den) : s[qq];
-          x = fminf(fmaxf(x, -1.0f), 1.0f);
-        }
-        s[qq] = (pad || col == sex[qq]) ? -INFINITY : x;
-      }
+      cnorm = __ldg(cn + col);
     } else {
 #pragma unroll
-      for (int qq = 0; qq < kTQ; ++qq) s[qq] = -INFINITY;
+      for (int qq = 0; qq < kTQ; ++qq) s[qq] = 0.0f;
     }
-    __syncthreads();  // the previous tile's scores are consumed
+    const bool scored = live && col < valid;
+    // the filter's per-column operand: NaN fails every compare (padding,
+    // past the split); a zero norm becomes FLT_MIN so that a bound of -inf
+    // still lets the column through
+    const float ch = !scored ? __int_as_float(0x7fc00000)
+                     : EXACT ? (cnorm > 0.0f ? cnorm : FLT_MIN)
+                             : 0.0f;
+    bool any = false;
 #pragma unroll
-    for (int qq = 0; qq < kTQ; ++qq) sc[qq * kTC + t] = s[qq];
-    __syncthreads();
-
+    for (int qq = 0; qq < kTQ; ++qq)
+      any |= s[qq] >= (EXACT ? __fmul_rn(bnd[qq], ch) : __fadd_rn(bnd[qq], ch));
+    if (!__any_sync(kFull, any)) continue;  // the common case
 #pragma unroll
-    for (int w = 0; w < kQPW; ++w) {
-      const int qq = warp + w * kWarps;
-      if (q0 + qq >= b) continue;  // warp-uniform
-#pragma unroll
-      for (int ch = 0; ch < kTC / 32; ++ch) {
-        const float x = sc[qq * kTC + ch * 32 + lane];
-        unsigned m = __ballot_sync(kFull, x > thr[w]);
-        while (m) {
-          const int bit = __ffs(m) - 1;
-          m &= m - 1;
-          const float xv = __shfl_sync(kFull, x, bit);
-          if (xv > thr[w]) {  // thr may have risen within this chunk
-            list_insert<KPL>(lv[w], lc[w], k, xv,
-                             static_cast<int>(base + ch * 32 + bit), lane);
-            thr[w] = list_kth<KPL>(lv[w], k);
-          }
-        }
+    for (int qq = 0; qq < kTQ; ++qq) {
+      const bool pass =
+          s[qq] >= (EXACT ? __fmul_rn(bnd[qq], ch) : __fadd_rn(bnd[qq], ch));
+      unsigned m = __ballot_sync(kFull, pass);
+      if (!m) continue;  // warp-uniform
+      float* lv = lv_all + (warp * kTQ + qq) * k;
+      int* lc = lc_all + (warp * kTQ + qq) * k;
+      float kth = lv[k - 1];
+      const float floor_q = block_floor(pub[qq]);
+      // the exact score of a column that passed; the division only here
+      float x = -INFINITY;
+      if (pass && col != sex[qq]) {
+        const float den = __fmul_rn(sqn[qq], cnorm);
+        x = !(den > eps) ? 0.0f
+                         : fminf(fmaxf(EXACT ? __fdiv_rn(s[qq], den) : s[qq],
+                                       -1.0f), 1.0f);
       }
+      bool grew = false;
+      do {
+        const int bit = __ffs(m) - 1;
+        m &= m - 1;
+        const float xv = __shfl_sync(kFull, x, bit);
+        if (xv > kth && xv >= floor_q) {
+          list_insert<KPL>(lv, lc, k, xv,
+                           static_cast<int>(base + 32 * warp + bit), lane);
+          kth = lv[k - 1];
+          grew = true;
+        }
+      } while (m);
+      if (grew && lane == 0) pub[qq][warp] = lv[kq - 1];
+      bnd[qq] = filter_bound<EXACT>(kth, block_floor(pub[qq]), sqn[qq]);
     }
   }
+  __syncthreads();
 
-#pragma unroll
+  // fold the 4 warp lists of each query: lane l < kWarps holds the head of
+  // warp l's list; k rounds of a pick of the best head
+#pragma unroll 1
   for (int w = 0; w < kQPW; ++w) {
-    const int64_t qg = q0 + warp + w * kWarps;
-    if (qg >= b) continue;
+    const int qq = warp + w * kWarps;
+    const int64_t qg = q0 + qq;
+    if (qg >= b) continue;  // warp-uniform
     const int64_t o = (qg * nsplit + split) * k;
+    const int src = lane < kWarps ? lane : 0;
+    const float* hv = lv_all + (src * kTQ + qq) * k;
+    const int* hc = lc_all + (src * kTQ + qq) * k;
+    int head = 0;
+    for (int r = 0; r < k; ++r) {
+      float bv = -INFINITY;
+      int bc = INT_MAX;
+      int bl = lane;
+      if (lane < kWarps && head < k) {
+        bv = hv[head];
+        bc = hc[head];
+      }
 #pragma unroll
-    for (int i = 0; i < KPL; ++i) {
-      const int j = 32 * i + lane;
-      if (j < k) {
-        pv[o + j] = lv[w][i];
-        pc[o + j] = lc[w][i];
+      for (int off = 1; off < kWarps; off <<= 1) {
+        const float ov2 = __shfl_xor_sync(kFull, bv, off);
+        const int oc2 = __shfl_xor_sync(kFull, bc, off);
+        const int ol2 = __shfl_xor_sync(kFull, bl, off);
+        if (ranks_before(ov2, oc2, bv, bc)) {
+          bv = ov2;
+          bc = oc2;
+          bl = ol2;
+        }
+      }
+      bv = __shfl_sync(kFull, bv, 0);
+      bc = __shfl_sync(kFull, bc, 0);
+      bl = __shfl_sync(kFull, bl, 0);
+      if (bv == -INFINITY) {  // every list is spent: unfilled slots
+        for (int j = r + lane; j < k; j += 32) {
+          pv[o + j] = -INFINITY;
+          pc[o + j] = -1;
+        }
+        break;
+      }
+      if (lane == bl) ++head;
+      if (lane == 0) {
+        pv[o + r] = bv;
+        pc[o + r] = bc;
       }
     }
   }
@@ -346,15 +474,22 @@ struct Args {
   void* pc;
 };
 
+// Launch the partial kernel instance for (KPL, EXACT, T), or, with
+// blocks_per_sm, write how many of its blocks an SM holds at once instead.
 template <int KPL, bool EXACT, typename T>
-int launch_partial(const Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(a.fq) * kTQ +
-                                       static_cast<size_t>(kTQ) * kTC);
+int launch_partial(const Args& a, cudaStream_t stream, int* blocks_per_sm) {
+  // the query tile, then the warp lists' values and columns
+  const size_t smem =
+      sizeof(float) * static_cast<size_t>(a.fq) * kTQ +
+      (sizeof(float) + sizeof(int)) * static_cast<size_t>(kWarps) * kTQ * a.k;
   auto kernel = fused_partial_kernel<KPL, EXACT, T>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
+  if (blocks_per_sm)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kernel, kThreads, smem));
   const dim3 grid(static_cast<unsigned>((a.b + kTQ - 1) / kTQ),
                   static_cast<unsigned>(a.nsplit));
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -367,10 +502,17 @@ int launch_partial(const Args& a, cudaStream_t stream) {
 }
 
 template <bool EXACT, typename T>
-int launch_k(const Args& a, cudaStream_t s) {
-  if (a.k <= 32) return launch_partial<1, EXACT, T>(a, s);
-  if (a.k <= 64) return launch_partial<2, EXACT, T>(a, s);
-  return launch_partial<4, EXACT, T>(a, s);
+int launch_k(const Args& a, cudaStream_t s, int* blocks_per_sm) {
+  if (a.k <= 32) return launch_partial<1, EXACT, T>(a, s, blocks_per_sm);
+  if (a.k <= 64) return launch_partial<2, EXACT, T>(a, s, blocks_per_sm);
+  return launch_partial<4, EXACT, T>(a, s, blocks_per_sm);
+}
+
+int launch(const Args& a, bool exact, bool bf16, cudaStream_t s,
+           int* blocks_per_sm) {
+  return bf16    ? launch_k<false, __nv_bfloat16>(a, s, blocks_per_sm)
+         : exact ? launch_k<true, float>(a, s, blocks_per_sm)
+                 : launch_k<false, float>(a, s, blocks_per_sm);
 }
 
 }  // namespace
@@ -400,9 +542,7 @@ extern "C" int srt_fused_topk(const void* q, const void* qn, const void* ft,
                static_cast<int>(fq), static_cast<int>(fc), np, valid,
                static_cast<int>(k), eps, static_cast<int>(nsplit),
                split_cols, pv, pc};
-  const int err = bf16    ? launch_k<false, __nv_bfloat16>(a, s)
-                  : exact ? launch_k<true, float>(a, s)
-                          : launch_k<false, float>(a, s);
+  const int err = launch(a, exact, bf16, s, nullptr);
   if (err != 0) return err;
   const int64_t blocks = (b + kMergeWarps - 1) / kMergeWarps;
   fused_merge_kernel<<<static_cast<unsigned>(blocks), kMergeWarps * 32, 0,
@@ -411,4 +551,16 @@ extern "C" int srt_fused_topk(const void* q, const void* qn, const void* ft,
                             static_cast<float*>(ov),
                             static_cast<int64_t*>(oi));
   return static_cast<int>(cudaGetLastError());
+}
+
+// How many blocks of the partial kernel that srt_fused_topk launches for
+// (fq, k, exact, bf16) an SM holds at once, into *out (int).  Returns a
+// cudaError_t.
+extern "C" int srt_fused_blocks_per_sm(int64_t fq, int64_t k, int64_t exact,
+                                       int64_t bf16, void* out) {
+  if (k < 1 || k > 128 || fq < 1) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.fq = static_cast<int>(fq);
+  a.k = static_cast<int>(k);
+  return launch(a, exact, bf16, nullptr, static_cast<int*>(out));
 }

@@ -79,6 +79,8 @@ SERVING = Library("serving", (
     "srt_fused_topk": (_P, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64,
                        _I64, _I64, _I64, _I64, _I64, _F32, _I64, _I64, _P,
                        _P, _P, _P, _P),
+    # fq, k, exact, bf16, out (int)
+    "srt_fused_blocks_per_sm": (_I64, _I64, _I64, _I64, _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
     # q2, b, f, ft, ft_stride, np, w, depth, topc, slice, wv, wi, wb, ov,

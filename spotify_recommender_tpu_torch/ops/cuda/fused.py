@@ -35,12 +35,14 @@ two agree bitwise.  k is at most KERNEL_MAX_K on every device.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from spotify_recommender_tpu_torch.core.config import COSINE_EPS
 from spotify_recommender_tpu_torch.ops.cuda import _build
+from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import device_sms
 from spotify_recommender_tpu_torch.ops.topk import merge_topk, topk_stable
 
 KERNEL_MAX_K = 128        # 4 list slots per lane of a warp (csrc/fused_topk.cu)
@@ -48,7 +50,9 @@ _TQ = 16                  # queries per block
 _TC = 128                 # columns per tile
 _MAX_SPLITS = 128
 _MIN_SPLIT_COLS = 1024    # a split below this costs more in its merge
-_BLOCKS_PER_SM = 4        # resident blocks of 128 threads the grid aims at
+_CPU_BLOCKS_PER_SM = 4    # resident blocks per SM assumed without a card
+_TINY_T = 2.0**-60        # below it the filter lets every column through
+_MARGIN = 2.0**-22        # the exact filter's relative margin
 PLAIN_CHUNK_ELEMS = 1 << 26   # (B x columns) per chunk of the plain version
 
 
@@ -123,13 +127,66 @@ def fused_topk_plain(
     return best_s, best_i.masked_fill(best_s == float("-inf"), -1)
 
 
-def _splits(b: int, np_: int, device: torch.device) -> Tuple[int, int]:
-    """(number of catalog splits, columns per split): enough blocks to fill
-    the card at any B, each split at least _MIN_SPLIT_COLS wide."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def filter_pass(dot: torch.Tensor, qn: torch.Tensor, cn: torch.Tensor,
+                t: torch.Tensor, exact: bool = True,
+                floor: torch.Tensor = None) -> torch.Tensor:
+    """The kernel's filter (`filter_bound` and the compare in
+    csrc/fused_topk.cu), elementwise over fp32 tensors: False only where
+    the score (the guard, the clamp and, exact, rn(dot / rn(qn * cn))) of a
+    scored column cannot be both above the warp's k-th best t and at or
+    above the block's floor (-inf if None).  Only where it is True does the
+    kernel compute that score (exact: divide).  With u = max(t, floor), the
+    bound is exact rd(rd(u * qn) * (1 - 2^-22)), prenormalized u, or +-inf
+    as the kernel's notes say; the column passes if `dot >= rn(bound *
+    cn)`, a zero norm counted as FLT_MIN, or prenormalized `dot >= bound`."""
+    u = t if floor is None else torch.maximum(t, floor)
+    bound = _mul_rd(_mul_rd(u, qn.double()), 1.0 - _MARGIN) if exact else u
+    inf = torch.full_like(t, float("inf"))
+    bound = torch.where((t >= 1.0) | ((qn == 0) & (t >= 0)), inf,
+                        torch.where(~(u >= _TINY_T), -inf, bound))
+    if not exact:
+        return dot >= bound
+    return dot >= bound * torch.where(cn > 0, cn, torch.finfo(torch.float32).tiny)
+
+
+def _mul_rd(a: torch.Tensor, b) -> torch.Tensor:
+    """fp32 a * b rounded toward -inf (CUDA's __fmul_rd): the product is
+    exact in float64, then rounded down to fp32."""
+    v = a.double() * b
+    r = v.float()
+    return torch.where(r.double() > v,
+                       torch.nextafter(r, torch.tensor(float("-inf"))), r)
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(index: int, fq: int, k: int, exact: bool, bf16: bool) -> int:
+    """Blocks of the kernel instance for these arguments that one SM of
+    CUDA device `index` holds at once."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = _build.library().srt_fused_blocks_per_sm(
+            fq, k, int(exact), int(bf16), ctypes.addressof(out))
+    _build.check(err, "fused_topk occupancy")
+    return out.value
+
+
+def _splits(b: int, np_: int, device: torch.device, *, fq: int = 12,
+            k: int = 10, exact: bool = True,
+            bf16: bool = False) -> Tuple[int, int]:
+    """(number of catalog splits, columns per split): as many splits as let
+    the (query tiles x splits) blocks run in one wave of the card's
+    resident blocks (the H100's 132 SMs for a CPU device), each split at
+    least _MIN_SPLIT_COLS wide."""
+    if device.type == "cuda":
+        index = (device.index if device.index is not None
+                 else torch.cuda.current_device())
+        per_sm = _occupancy(index, fq, k, bool(exact), bool(bf16))
+    else:
+        per_sm = _CPU_BLOCKS_PER_SM
+    slots = device_sms(device) * per_sm
     tiles = -(-b // _TQ)
-    want = -(-_BLOCKS_PER_SM * sms // tiles)
-    nsplit = max(1, min(want, _MAX_SPLITS, -(-np_ // _MIN_SPLIT_COLS)))
+    nsplit = max(1, min(slots // tiles, _MAX_SPLITS,
+                        -(-np_ // _MIN_SPLIT_COLS)))
     cols = -(-max(np_, 1) // nsplit)
     cols = -(-cols // _TC) * _TC
     return -(-max(np_, 1) // cols), cols
@@ -166,7 +223,9 @@ def fused_topk(
     oi = torch.empty((b, k), dtype=torch.int64, device=dev)
     if b == 0:
         return ov, oi
-    nsplit, split_cols = _splits(b, np_, dev)
+    bf16 = features_t.dtype == torch.bfloat16
+    nsplit, split_cols = _splits(b, np_, dev, fq=fq, k=k, exact=exact,
+                                 bf16=bf16)
     pv = torch.empty((b, nsplit, k), dtype=torch.float32, device=dev)
     pc = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
@@ -174,7 +233,7 @@ def fused_topk(
             queries.data_ptr(), q_norms.data_ptr(), features_t.data_ptr(),
             features_t.stride(0), features_t.stride(1), norms.data_ptr(),
             excl.data_ptr(), b, fq, fc, np_, int(valid), k, int(bool(exact)),
-            int(features_t.dtype == torch.bfloat16), ctypes.c_float(eps),
+            int(bf16), ctypes.c_float(eps),
             nsplit, split_cols, pv.data_ptr(),
             pc.data_ptr(), ov.data_ptr(), oi.data_ptr(),
             torch.cuda.current_stream().cuda_stream,

@@ -12,6 +12,7 @@ These repeat, at a small size, the kernel phases of chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+from test_torch_fused_select import tie_inputs
 
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.experiments import (
@@ -23,6 +24,7 @@ from spotify_recommender_tpu_torch.experiments import (
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.cuda import ablation, proto_scans
 from spotify_recommender_tpu_torch.ops.cuda.fused import (
+    _splits,
     fused_topk,
     fused_topk_plain,
 )
@@ -260,28 +262,43 @@ def test_split_scans_bitwise_equal_plain(cuda, b, w):
             assert torch.equal(o, p), (topc, (o != p).sum().item())
 
 
-def _fused_inputs(cuda, n, b, seed):
+def _fused_inputs(cuda, n, b, seed, data="random", k=10):
+    """Random rows with a zero-norm row and a duplicate, or a tie-heavy
+    catalog of test_torch_fused_select.tie_inputs (its edges at this
+    card's catalog splits for k)."""
     rng = np.random.default_rng(seed)
-    feats = rng.random((n, 12), dtype=np.float32)
-    feats[3] = 0.0                                  # zero-norm row: score 0
-    feats[n // 2] = feats[1]                        # duplicate: a tie
-    rows = rng.integers(0, n, b)
-    q = feats[rows] + 0.01 * rng.standard_normal((b, 12)).astype(np.float32)
-    excl = np.where(np.arange(b) % 3 == 0, -1, rows)
+    if data == "random":
+        feats = rng.random((n, 12), dtype=np.float32)
+        feats[3] = 0.0                              # zero-norm row: score 0
+        feats[n // 2] = feats[1]                    # duplicate: a tie
+        rows = rng.integers(0, n, b)
+        q = feats[rows] + 0.01 * rng.standard_normal((b, 12)).astype(np.float32)
+        excl = np.where(np.arange(b) % 3 == 0, -1, rows)
+    else:
+        edges = range(0, n, _splits(b, n, cuda, k=k)[1])
+        feats, q, excl = tie_inputs(data, n, b, seed, edges=edges)
     f = torch.from_numpy(feats).to(cuda)
     qt = torch.from_numpy(q).to(cuda)
     return f, qt, torch.from_numpy(excl).to(cuda)
 
 
 @pytest.mark.parametrize("exact", [True, False])
-@pytest.mark.parametrize("n,b,k,layout", [
-    (20011, 40, 10, "transposed"),   # 20 catalog splits, 3 query tiles
-    (5000, 1, 100, "transposed"),    # B = 1, large k
-    (9000, 17, 128, "rows"),         # the largest k, a row-major view
-    (50, 3, 64, "transposed"),       # fewer valid columns than k
+@pytest.mark.parametrize("n,b,k,layout,data", [
+    (20011, 40, 10, "transposed", "random"),  # 20 catalog splits, 3 query tiles
+    (5000, 1, 100, "transposed", "random"),   # B = 1, large k
+    (9000, 17, 128, "rows", "random"),        # the largest k, a row-major view
+    (50, 3, 64, "transposed", "random"),      # fewer valid columns than k
+    # tie-heavy catalogs, k at the edges of the lists' 32-entry steps
+    (20011, 17, 32, "transposed", "constant"),
+    (20011, 5, 33, "transposed", "duplicates"),
+    (20011, 1, 64, "rows", "zero_norm"),
+    (20011, 40, 65, "transposed", "duplicates"),
+    (20011, 1, 33, "transposed", "constant"),
+    (20011, 17, 128, "transposed", "zero_norm"),
+    (20011, 5, 1, "transposed", "duplicates"),
 ])
-def test_fused_topk_bitwise_equals_plain(cuda, exact, n, b, k, layout):
-    f, q, excl = _fused_inputs(cuda, n, b, seed=n)
+def test_fused_topk_bitwise_equals_plain(cuda, exact, n, b, k, layout, data):
+    f, q, excl = _fused_inputs(cuda, n, b, seed=n, data=data, k=k)
     norms = similarity.row_norms(f)
     qn = similarity.row_norms(q)
     if not exact:
@@ -312,9 +329,14 @@ def test_fused_topk_rejects_k_above_limit(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "bfloat16x2"])
-@pytest.mark.parametrize("n,b,k", [(20011, 40, 10), (5000, 1, 100), (50, 3, 64)])
-def test_fused_topk_bf16_bitwise_equals_plain(cuda, dtype, n, b, k):
-    f, q, excl = _fused_inputs(cuda, n, b, seed=n + 1)
+@pytest.mark.parametrize("n,b,k,data", [
+    (20011, 40, 10, "random"), (5000, 1, 100, "random"), (50, 3, 64, "random"),
+    (20011, 17, 32, "constant"), (20011, 5, 33, "duplicates"),
+    (20011, 1, 64, "zero_norm"), (20011, 40, 65, "duplicates"),
+    (20011, 17, 128, "duplicates"),
+])
+def test_fused_topk_bf16_bitwise_equals_plain(cuda, dtype, n, b, k, data):
+    f, q, excl = _fused_inputs(cuda, n, b, seed=n + 1, data=data, k=k)
     fr = FusedRetriever(f.cpu().numpy(), None,
                         RetrievalConfig(dtype=dtype, exact_scores=False), cuda)
     valid = n - 7
