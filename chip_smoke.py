@@ -37,7 +37,25 @@ its plain torch version on the card, runs the reference-style CLI on a
   case of the four launchers against its plain version, outputs and
   per-tile digest (NaN-aware), on its main's inputs (1024 queries, 1M
   rows, the case's tc), then the four mains
-  `experiments.kernel_ablation_r2{,b,c,d}.main` at 1M x 1024.
+  `experiments.kernel_ablation_r2{,b,c,d}.main` at 1M x 1024;
+- phase 14: the approx tier (`Retriever` with `dtype="bfloat16"`: kernels
+  2 and 1, no rerank) at the phase-6 cell and B = 1: recall@10 against the
+  fixed-order oracle >= 0.99, scores of the rows both return within
+  BF16X2_EPS, no index >= N, and a batch anti-aligned with the catalog
+  answers only rows < N or -1; kernel 1 at the tier's shapes against its
+  plain version (the "scan_v3_approx" entries);
+- phase 15: serving: `benchmark.run_serve_row` at its defaults (1M items,
+  32 clients x 10 requests, queue 64, certified tier; its burst's 429s as
+  they happen), a fresh service's warmup and a second one, batch times at
+  B = 1-32, a 128-request burst against a dispatcher held inside a batch
+  (63 shed, the rest answered as direct calls), and a live `make_server`
+  on port 0 whose `/recommend`, `/retrieve` (also from 8 threads at once),
+  `/metrics` and `/reload` answer as direct calls do;
+- phase 16: `benchmark.run_benchmark`: the headline (1M x 12, B = 1024,
+  reps 3, B = 1 too), the bf16 (approx) row and the 64-dim row, whose
+  answers for 64 queries equal the fixed-order oracle's index for index;
+  one batch of the 64-dim tier (the "scan_v3_f64" entry's launches), and
+  kernels 1 and 2 at F = 64 against their plain versions.
 
 Every phase prints one line; any failure raises and exits non-zero.  The
 next-to-last line is a JSON object of the kernels (launches on the main
@@ -62,7 +80,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 from pathlib import Path
 from typing import Tuple
 
@@ -72,7 +92,7 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch sees no CUDA device")
 
-from spotify_recommender_tpu_torch import cli  # noqa: E402
+from spotify_recommender_tpu_torch import benchmark, cli  # noqa: E402
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig  # noqa: E402
 from spotify_recommender_tpu_torch.core.device import (  # noqa: E402
     device_info,
@@ -114,6 +134,7 @@ from spotify_recommender_tpu_torch.ops.cuda.split import (  # noqa: E402
 )
 from spotify_recommender_tpu_torch.ops.fused_topk import (  # noqa: E402
     BF16X2_EPS,
+    CertifiedRetriever,
     FusedRetriever,
     PrefilterRetriever,
     build_certified_layout,
@@ -126,6 +147,11 @@ from spotify_recommender_tpu_torch.retrieval.retriever import (  # noqa: E402
 from spotify_recommender_tpu_torch.retrieval.streaming_retriever import (  # noqa: E402
     StreamingRetriever,
     host_tensor,
+)
+from spotify_recommender_tpu_torch.serve.server import (  # noqa: E402
+    BatchCoalescer,
+    ServiceOverloaded,
+    make_server,
 )
 
 DEV = torch.device("cuda:0")
@@ -522,6 +548,318 @@ def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
               for key, r in mains13.items())
           + f" ms; launches { {nm: launches[nm] for nm in first} }; "
           f"{time.perf_counter() - t13:.1f} s")
+
+
+def approx_phase(cat: Catalog, queries, excl, fixed, kernels: dict,
+                 launches: dict) -> None:
+    """Phase 14: the approx tier through the Retriever at the phase-6 cell
+    and B = 1; kernel 1 at the tier's shapes against its plain version,
+    as the "scan_v3_approx" entries of the kernels line."""
+    n, k = len(cat), 10
+    t0 = time.perf_counter()
+    ra = Retriever(cat, RetrievalConfig(dtype="bfloat16"), DEV)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    check(ra.backend == "approx", f"backend {ra.backend}")
+    split_bf16x2.launches = scan_v3.launches = 0
+    s, i = ra.retrieve(queries, k=k, exclude_rows=excl)
+    torch.cuda.synchronize()
+    got = {"split_bf16x2": split_bf16x2.launches, "scan_v3": scan_v3.launches}
+    check(all(v > 0 for v in got.values()),
+          f"approx: a kernel of the path did not launch: {got}")
+    fs, fi = fixed
+    rec = recall(i, fi)
+    check(rec >= 0.99, f"approx recall@{k} {rec} against the fixed-order oracle")
+    both = i[:, :, None] == fi[:, None, :]
+    err = (s[:, :, None] - fs[:, None, :]).abs()[both].max().item()
+    check(err <= BF16X2_EPS, f"approx scores differ from the oracle's by {err}")
+    check(bool(((i >= 0) & (i < n)).all())
+          and not bool((i == excl[:, None]).any()),
+          "approx: an index outside [0, N) or an excluded row")
+    t_b = wall_ms(lambda: ra.retrieve(queries, k=k, exclude_rows=excl), 20)
+    q1, e1 = queries[:1], excl[:1]
+    split_bf16x2.launches = scan_v3.launches = 0
+    ra.retrieve(q1, k=k, exclude_rows=e1)
+    torch.cuda.synchronize()
+    b1 = scan_v3.launches
+    check(split_bf16x2.launches > 0 and b1 > 0, "approx B=1: a kernel did not launch")
+    t_1 = wall_ms(lambda: ra.retrieve(q1, k=k, exclude_rows=e1), 20)
+    # anti-aligned queries: every real cosine is <= 0, so the pad columns'
+    # zero planes (score 0) can fill every bin; no pad index may leak
+    sa, ia = ra.retrieve(-queries, k=k, exclude_rows=excl)
+    torch.cuda.synchronize()
+    unfilled = ia == -1
+    check(bool((unfilled | ((ia >= 0) & (ia < n))).all())
+          and torch.equal(unfilled, sa == float("-inf")),
+          "anti-aligned: an index outside [0, N) or a filled -1 slot")
+    ap = ra.approx
+    dev_bytes = sum(t.numel() * t.element_size() for t in (ap.ft, ap.nrm_row))
+    cert_bytes = dev_bytes + n * cat.features.shape[1] * 4 + n * 4
+    launches["scan_v3_approx"] = got["scan_v3"]
+    launches["scan_v3_approx_b1"] = b1
+    # kernel 1 at the tier's shapes (its topc is approx_retrieve's c)
+    c = min(max(k + 8, ap.config.prefilter), ap.depth * ap.w)
+    q2 = split_queries(queries)
+    for name, qq in (("scan_v3_approx", q2),
+                     ("scan_v3_approx_b1", q2[:1].contiguous())):
+        kerr, _, out = compare_scan(qq, ap.ft, ap.depth, c, w=ap.w)
+        kernels[name] = dict(
+            source=f"{CSRC}/scan_v3.cu", replaces=f"{PALLAS}:1069",
+            max_abs_err=kerr,
+            ms=sync_ms(lambda: scan_v3(qq, ap.ft, w=ap.w, depth=ap.depth,
+                                       topc=c), 20),
+            plain_ms=sync_ms(lambda: scan_v3_plain(qq, ap.ft, w=ap.w,
+                                                   depth=ap.depth, topc=c), 3),
+            **bound(dot_flops(qq, ap.ft, qq.shape[1]), "bf16", qq, ap.ft, *out),
+            library_ms=None,
+        )
+        del out
+    print(f"phase 14 approx tier: N={n} B={queries.shape[0]} k={k}: launches "
+          f"{got} (B=1: kernel 1 {b1}); recall@{k} {rec:.4f} against the "
+          f"fixed-order oracle, max score diff where rows agree {err:.3g} "
+          f"(limit {BF16X2_EPS}); no index >= N; batch {t_b:.3f} ms median "
+          f"of 20 ({queries.shape[0] / t_b * 1e3:.0f} q/s); B=1 {t_1:.3f} ms; "
+          f"anti-aligned batch: {int(unfilled.sum())} of {ia.numel()} slots "
+          f"unfilled (-1, -inf), the rest rows < N; device bytes "
+          f"{dev_bytes} ({dev_bytes / cert_bytes:.3f} of the certified "
+          f"tier's {cert_bytes}); kernel 1 at the tier's shapes (topc {c}) "
+          f"bitwise its plain version: batch "
+          f"{kernels['scan_v3_approx']['ms']:.3f} ms, B=1 "
+          f"{kernels['scan_v3_approx_b1']['ms']:.4f} ms; setup {t_setup:.1f} s")
+
+
+def http_json(url: str, body=None) -> dict:
+    """GET `url`, or POST `body` as JSON; the decoded answer."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.load(r)
+
+
+def held_burst(svc, feats: np.ndarray, rows: np.ndarray, max_queue: int = 64,
+               k: int = 10) -> Tuple[int, int]:
+    """The 429 path on the card: a coalescer whose dispatcher is held
+    inside its first batch takes `max_queue` more requests and sheds the
+    rest of a `max_queue` + 64 burst at enqueue; released, every accepted
+    request gets a direct call's answer.  Returns (shed, answered)."""
+    gate, entered = threading.Event(), threading.Event()
+
+    def held(q, kk, ex):
+        entered.set()
+        check(gate.wait(timeout=120), "the held batch was never released")
+        return svc._retrieve_batch(q, kk, ex)
+
+    co = BatchCoalescer(held, window_ms=0.0, max_queue=max_queue)
+    burst = max_queue + 64
+    got, shed = {}, []
+
+    def client(i):
+        try:
+            got[i] = co.submit(feats[rows[i]], int(rows[i]), k, timeout_s=120)
+        except ServiceOverloaded:
+            shed.append(i)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(burst)]
+    try:
+        threads[0].start()
+        check(entered.wait(timeout=120), "the coalescer did not dispatch")
+        for t in threads[1:]:
+            t.start()
+        deadline = time.monotonic() + 120
+        while (len(co._pending) + len(shed) < burst - 1
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+    finally:
+        gate.set()
+        for t in threads:
+            if t.ident is not None:
+                t.join(timeout=120)
+        co.close()
+    check(not any(t.is_alive() for t in threads)
+          and len(shed) == burst - 1 - max_queue
+          and co.stats["rejected"] == len(shed),
+          f"held burst: {len(shed)} of {burst} shed, {co.stats}")
+    acc = np.asarray(sorted(got))
+    ws, wi = svc.retriever.retrieve_host(feats[rows[acc]], k=k,
+                                         exclude_rows=rows[acc])
+    check(all(np.array_equal(got[i][1], wi[j]) and np.array_equal(got[i][0], ws[j])
+              for j, i in enumerate(acc)),
+          "held burst: an accepted answer differs from a direct call")
+    return len(shed), len(acc)
+
+
+def serve_phase(feats: np.ndarray, build_s: float) -> None:
+    """Phase 15: the serve row at the JAX harness's defaults, a fresh
+    service's warmup and a second one, the 429 path with a held dispatcher,
+    and a live HTTP server held against direct calls."""
+    t15 = time.perf_counter()
+    split_bf16x2.launches = scan_v3.launches = 0
+    row = benchmark.run_serve_row(device=DEV)
+    got = {"split_bf16x2": split_bf16x2.launches, "scan_v3": scan_v3.launches}
+    check(all(v > 0 for v in got.values()),
+          f"serve row: a kernel of the path did not launch: {got}")
+    check(row["serve_errors"] == 0, f"serve row: {row}")
+    t_row = time.perf_counter() - t15
+    n, k = len(feats), 10
+    srv = make_server(benchmark._serve_catalog(feats), "127.0.0.1", 0, None,
+                      device=DEV)
+    svc, server_thread = srv.server_service, None
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # the library was built in phase 2; a new checkout's first
+            # warmup adds that build to the first one here
+            first = svc.warmup()
+            warm = svc.warmup()
+            r = svc.retriever
+            rows = np.random.default_rng(15).integers(0, n, 256)
+            # the coalescer's batch sizes, unpadded (the JAX service pads
+            # each batch to a power of two)
+            sizes = {m: wall_ms(lambda: r.retrieve_host(
+                feats[rows[:m]], k=k, exclude_rows=rows[:m]), 20)
+                for m in (1, 5, 8, 16, 32)}
+            shed, answered = held_burst(svc, feats, rows)
+            server_thread = threading.Thread(target=srv.serve_forever,
+                                             daemon=True)
+            server_thread.start()
+            base = f"http://127.0.0.1:{srv.server_address[1]}"
+            out = http_json(f"{base}/recommend?id=tid00000042&n={k}")
+            want = [x.row for x in r.recommend_by_id("tid00000042", k)]
+            check([x["row"] for x in out["results"]] == want,
+                  "/recommend rows differ from a direct call's")
+            ws, wi = r.retrieve_host(feats[rows[:8]], k=k)
+            out = http_json(f"{base}/retrieve",
+                            {"queries": feats[rows[:8]].tolist(), "k": k})
+            check(np.array_equal(out["rows"], wi)
+                  and np.array_equal(np.asarray(out["scores"], np.float32), ws),
+                  "/retrieve differs from a direct call")
+            # 8 threads at once, each its own 16 queries, against serial calls
+            batches = [feats[rows[16 * t:16 * t + 16]] for t in range(8)]
+            serial = [r.retrieve_host(q, k=k)[1] for q in batches]
+            answers = [None] * 8
+
+            def client(t):
+                answers[t] = http_json(f"{base}/retrieve",
+                                       {"queries": batches[t].tolist(), "k": k})
+
+            clients = [threading.Thread(target=client, args=(t,))
+                       for t in range(8)]
+            for c in clients:
+                c.start()
+            for c in clients:
+                c.join(timeout=120)
+            check(not any(c.is_alive() for c in clients)
+                  and all(a is not None and np.array_equal(a["rows"], w)
+                          for a, w in zip(answers, serial)),
+                  "concurrent /retrieve answers differ from serial calls")
+            metrics = http_json(f"{base}/metrics")
+            check("certificate_fallbacks" in metrics
+                  and metrics["requests"] >= 10, f"/metrics {metrics}")
+            small = str(Path(tmp) / "small.npz")
+            m = min(50_000, n // 2)
+            benchmark._serve_catalog(feats[:m].copy()).save(small)
+            out = http_json(f"{base}/reload", {"catalog": small})
+            check(out.get("num_items") == m, f"/reload {out}")
+            out = http_json(f"{base}/recommend?id=tid00000042&n={k}")
+            want = [x.row for x in
+                    svc.retriever.recommend_by_id("tid00000042", k)]
+            got_rows = [x["row"] for x in out["results"]]
+            check(got_rows == want and max(got_rows) < m,
+                  "/recommend after /reload differs from a direct call's")
+    finally:
+        if server_thread is not None:
+            srv.shutdown()
+        svc.close()
+        srv.server_close()
+    print(f"phase 15 serving: run_serve_row (1M items, 32 clients x 10 "
+          f"requests, queue 64, certified tier): {row}; "
+          f"launches {got}; {t_row:.1f} s; warmup (batches 8-256) of a "
+          f"fresh service {first:.3f} s (+ the serving library's build, "
+          f"{build_s:.1f} s in phase 2, in a new checkout: cold "
+          f"{build_s + first:.2f} s), again {warm:.3f} s; held dispatcher: "
+          f"{shed} of 128 shed with 429 at enqueue, {answered} answered as "
+          f"direct calls; certified batch at B = "
+          + ", ".join(f"{m}: {t:.3f}" for m, t in sizes.items())
+          + f" ms (median of 20, no padding); HTTP /recommend, /retrieve, "
+          f"/metrics (certificate_fallbacks {metrics['certificate_fallbacks']}"
+          f"), /reload ({m} items) answer as direct calls; 8 concurrent "
+          f"/retrieve clients equal serial calls; "
+          f"{time.perf_counter() - t15:.1f} s")
+
+
+def bench_phase(kernels: dict, launches: dict, n: int, b: int) -> None:
+    """Phase 16: `benchmark.run_benchmark`'s headline, bf16 and 64-dim rows
+    (their JSON lines printed), then kernels 1 and 2 at F = 64 against their
+    plain versions; adds kernel 1's F = 64 entry to the kernels line."""
+    t16 = time.perf_counter()
+    rows = {}
+    for name, kw in (
+        ("headline", dict(reps=3, also_b1=True)),
+        ("bf16", dict(backend="bf16", warmup=1, iters=6)),
+        ("64dim", dict(feature_dim=64, warmup=1, iters=6, verify_queries=64)),
+    ):
+        split_bf16x2.launches = scan_v3.launches = 0
+        r = benchmark.run_benchmark(num_items=n, num_queries=b, k=10,
+                                    device=DEV, **kw)
+        got = {"split_bf16x2": split_bf16x2.launches,
+               "scan_v3": scan_v3.launches}
+        check(all(v > 0 for v in got.values()),
+              f"benchmark {name}: a kernel of the path did not launch: {got}")
+        rows[name] = (r, got)
+        print(benchmark.to_json_line(r))
+    exact = f"queries/sec/chip exact top-10 over {n} items"
+    check(rows["headline"][0].metric == exact == rows["64dim"][0].metric
+          and rows["bf16"][0].metric == exact.replace("exact", "approx"),
+          "benchmark metric strings")
+    # one batch of the 64-dim row's tier (its launches are the kernels
+    # line's), then kernels 1 and 2 at its shapes against their plain
+    # versions
+    feats64, norms64, q64, r64 = benchmark._make_inputs(n, b, 64, 0)
+    cr64 = CertifiedRetriever(feats64, norms64, None, DEV)
+    del feats64, norms64
+    q = torch.from_numpy(q64).to(DEV)
+    split_bf16x2.launches = scan_v3.launches = 0
+    cr64(q, 10, torch.from_numpy(r64).long().to(DEV))
+    torch.cuda.synchronize()
+    launches["scan_v3_f64"] = scan_v3.launches
+    check(split_bf16x2.launches > 0 and scan_v3.launches > 0,
+          "64-dim batch: a kernel of the path did not launch")
+    dl = cr64.layout
+    qu = q / similarity.row_norms(q).clamp_min(1e-30)[:, None]
+    hi, lo = split_bf16x2(qu)
+    phi, plo = split_bf16x2_plain(qu)
+    torch.cuda.synchronize()
+    check(torch.equal(hi.view(torch.int16), phi.view(torch.int16))
+          and torch.equal(lo.view(torch.int16), plo.view(torch.int16)),
+          "split kernel differs from plain at F=64")
+    q2 = torch.cat([hi, lo, lo, hi], dim=1)
+    err, _, out = compare_scan(q2, dl.ft, 2, 32)
+    kernels["scan_v3_f64"] = dict(
+        source=f"{CSRC}/scan_v3.cu", replaces=f"{PALLAS}:1069",
+        max_abs_err=err,
+        ms=sync_ms(lambda: scan_v3(q2, dl.ft, w=128, depth=2, topc=32), 10),
+        plain_ms=sync_ms(lambda: scan_v3_plain(q2, dl.ft, w=128, depth=2,
+                                               topc=32), 1),
+        **bound(dot_flops(q2, dl.ft, q2.shape[1]), "bf16", q2, dl.ft, *out),
+        library_ms=None,
+    )
+    cols = dl.ft.shape[1]
+    del dl, cr64, out
+    print(f"phase 16 benchmark rows (N={n}, B={b}, k=10): "
+          + "; ".join(f"{nm} {r.value} q/s, batch "
+                      f"{r.details['batch_latency_ms']} ms, launches {got}"
+                      for nm, (r, got) in rows.items())
+          + f"; headline B=1 {rows['headline'][0].details['b1_latency_ms']} ms, "
+          f"fallbacks per batch "
+          f"{rows['headline'][0].details['certificate_fallback_queries_per_batch']}"
+          f", 64-dim fallbacks per batch "
+          f"{rows['64dim'][0].details['certificate_fallback_queries_per_batch']}"
+          f"; 64-dim answers for 64 queries equal the fixed-order oracle's "
+          f"index for index; at F=64 the split is bitwise its plain "
+          f"version and kernel 1 ({b} x {cols}, depth 2) is bitwise "
+          f"its plain version: {kernels['scan_v3_f64']['ms']:.3f} ms vs plain "
+          f"{kernels['scan_v3_f64']['plain_ms']:.1f} ms; "
+          f"{time.perf_counter() - t16:.1f} s")
 
 
 def main() -> None:
@@ -1237,6 +1575,14 @@ def main() -> None:
 
     # ---- 13. TPU kernels 5-8 and the four experiment paths that run them
     ablation_phase(n, b, kernels, launches)
+
+    # ---- 14-16. the approx tier, serving and the benchmark entry, with the
+    # earlier phases' cached blocks returned to the card (a serving process
+    # starts without them; with them, new allocations stall on cudaFree)
+    torch.cuda.empty_cache()
+    approx_phase(cat, queries, excl, fixed, kernels, launches)
+    serve_phase(feats, built[_build.SERVING.name][1])
+    bench_phase(kernels, launches, n, b)
 
     low = {nm: (kv["ms"], kv["bound_ms"]) for nm, kv in kernels.items()
            if not kv["ms"] >= kv["bound_ms"]}

@@ -7,9 +7,11 @@ the JAX package's two calling styles:
     ``... --preprocess dataset.csv``
     ``... --song "Bohemian Rhapsody" -n 5``
     ``... --id "3ade68b8e" -n 10``
-- subcommands: ``preprocess`` (formats npz and bin), ``recommend`` and
+- subcommands: ``preprocess`` (formats npz and bin), ``recommend``,
   ``retrieve`` (batched query vectors -> top-k; ``--streaming`` streams a
-  memory-mapped catalog directory through the device in windows).
+  memory-mapped catalog directory through the device in windows),
+  ``serve`` (the HTTP service, serve/server.py) and ``benchmark`` (one
+  benchmark row as a JSON line, benchmark.py).
 
 A global ``--device`` flag (default ``cuda``) names the device retrieval
 runs on; ``--device cuda`` without a card raises.  The JAX package's other
@@ -41,18 +43,9 @@ BANNER = """\
 
 # subcommands of the JAX package that this package does not have yet
 NOT_PORTED = (
-    "benchmark", "autotune", "train-mf", "train-two-tower",
+    "autotune", "train-mf", "train-two-tower",
     "evaluate-mf", "recommend-user", "embed-catalog", "evaluate-two-tower",
-    "serve",
 )
-
-
-def _load_catalog(path: str):
-    from spotify_recommender_tpu_torch.data.catalog import Catalog
-
-    if path.endswith(".bin"):
-        return Catalog.load_reference_binary(path)
-    return Catalog.load(path)
 
 
 def cmd_preprocess(csv_path: str, output: str, fmt: str = "npz") -> int:
@@ -76,10 +69,11 @@ def cmd_preprocess(csv_path: str, output: str, fmt: str = "npz") -> int:
 def cmd_recommend(
     query: str, by_id: bool, top_n: int, catalog_path: str, device: str
 ) -> int:
+    from spotify_recommender_tpu_torch.data.catalog import load_catalog
     from spotify_recommender_tpu_torch.retrieval.retriever import Retriever
 
     print("=== RECOMMENDATION MODE ===")
-    cat = _load_catalog(catalog_path)
+    cat = load_catalog(catalog_path)
     retriever = Retriever(cat, None, device)
 
     kind = "track ID" if by_id else "song"
@@ -134,7 +128,10 @@ def cmd_retrieve(args, device: str) -> int:
 
     import numpy as np
 
-    from spotify_recommender_tpu_torch.data.catalog import read_dir_meta
+    from spotify_recommender_tpu_torch.data.catalog import (
+        load_catalog,
+        read_dir_meta,
+    )
     from spotify_recommender_tpu_torch.retrieval.retriever import Retriever
     from spotify_recommender_tpu_torch.retrieval.streaming_retriever import (
         StreamingRetriever,
@@ -155,7 +152,7 @@ def cmd_retrieve(args, device: str) -> int:
     else:
         with np.load(args.queries) as z:
             queries = z["queries"]
-    cat = _load_catalog(args.catalog)
+    cat = load_catalog(args.catalog)
     if args.streaming:
         retriever = StreamingRetriever(cat.features, cat.norms, None, device)
     else:
@@ -181,7 +178,30 @@ def cmd_retrieve(args, device: str) -> int:
     return 0
 
 
+def cmd_serve(args, device: str) -> int:
+    from spotify_recommender_tpu_torch.serve.server import serve
+
+    return serve(args.catalog, host=args.host, port=args.port, device=device)
+
+
+def cmd_benchmark(args, device: str) -> int:
+    from spotify_recommender_tpu_torch import benchmark
+
+    result = benchmark.run_benchmark(
+        num_items=args.items,
+        num_queries=args.queries,
+        feature_dim=args.dim,
+        k=args.k,
+        backend=args.backend,
+        device=device,
+    )
+    print(benchmark.to_json_line(result))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
+    from spotify_recommender_tpu_torch.benchmark import BACKENDS
+
     p = argparse.ArgumentParser(
         prog="spotify_recommender_tpu_torch", description=__doc__
     )
@@ -221,6 +241,21 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host-stream the catalog through the device in "
                          "windows (capacity tier for catalogs beyond "
                          "device memory; pair with a memmap catalog dir)")
+
+    sb = sub.add_parser("benchmark", help="retrieval throughput benchmark")
+    sb.add_argument("--items", type=int, default=1_000_000)
+    sb.add_argument("--queries", type=int, default=1024)
+    sb.add_argument("--dim", type=int, default=12)
+    sb.add_argument("--k", type=int, default=10)
+    sb.add_argument("--backend", default="auto",
+                    choices=BACKENDS,
+                    help="auto: certified on a card, the oracle on the CPU; "
+                         "xla: the oracle")
+
+    ss = sub.add_parser("serve", help="HTTP retrieval service")
+    ss.add_argument("--catalog", default=DEFAULT_CATALOG)
+    ss.add_argument("--host", default="127.0.0.1")
+    ss.add_argument("--port", type=int, default=8000)
     return p
 
 
@@ -298,6 +333,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         )
     if args.command == "retrieve":
         return cmd_retrieve(args, device)
+    if args.command == "benchmark":
+        return cmd_benchmark(args, device)
+    if args.command == "serve":
+        return cmd_serve(args, device)
     parser.print_help()
     return 1
 

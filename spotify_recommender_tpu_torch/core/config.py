@@ -58,8 +58,8 @@ class RetrievalConfig:
     use_pallas: bool = True
     # Catalog storage dtype. "float32" (default) keeps the certified
     # exact tier.  FusedRetriever also stores "bfloat16" or "bfloat16x2"
-    # (with exact_scores=False); for the Retriever, "bfloat16" selects the
-    # approx tier (not ported yet).
+    # (with exact_scores=False); for the Retriever, any "bfloat16..."
+    # selects the approx tier (ops/fused_topk.ApproxRetriever).
     dtype: str = "float32"
     # True: reproduce the reference's division-form cosine epilogue
     # (dot / (|x||q|) with the 1e-8 product guard) bit-faithfully.

@@ -590,11 +590,17 @@ __global__ void __launch_bounds__(W * merge_groups(W))
 }
 
 // W-column groups per catalog tile: the tile budget, at least one group and
-// a multiple of `u`.  The shared memory is sized from the real tile (at
-// qw = 48 and W = 512 one group is 49,152 bytes, twice the budget).
-inline int tile_cols(int rows, int w, int u = 1) {
+// a multiple of `u`, but no more than two tile buffers in `avail` bytes
+// hold.  The shared memory is sized from the real tile (at qw = 48 and W =
+// 512 one group is 49,152 bytes, twice the budget).  Wide rows get fewer
+// than `u` groups (F = 64 at W = 128: 3 of 32,768 bytes, where u = 4 would
+// need 262,144 for the two buffers); the scan then scores each group of the
+// tile on its own, as it scores the groups past a tile's last full step.
+inline int tile_cols(int rows, int w, int u = 1, int avail = kMaxSmem) {
   int groups = kTileBytes / (rows * w * 2);
   groups = groups < u ? u : groups - groups % u;
+  const int fit = avail / (2 * rows * w * 2);
+  if (groups > fit) groups = fit > 1 ? fit : 1;
   return groups * w;
 }
 
@@ -606,8 +612,9 @@ template <int W, int D, Epi E, class C>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr int TQ = queries_per_block(W);
   const int rows = C::rows(a.f);
-  const int tc = tile_cols(rows, W, cols_per_step(W, D));
-  const size_t smem = sizeof(float) * rows * TQ + 2 * (2ull * rows * tc);
+  const int qbytes = static_cast<int>(sizeof(float)) * rows * TQ;
+  const int tc = tile_cols(rows, W, cols_per_step(W, D), kMaxSmem - qbytes);
+  const size_t smem = qbytes + 2 * (2ull * rows * tc);
   if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   auto scan = scan_kernel<W, D, E, C>;

@@ -287,6 +287,14 @@ class Catalog:
             f.write(buf.getvalue())
 
 
+def load_catalog(path: str) -> Catalog:
+    """A catalog artifact by its path: the reference's `.bin`, else what
+    `Catalog.load` reads (npz or a catalog directory)."""
+    if path.endswith(".bin"):
+        return Catalog.load_reference_binary(path)
+    return Catalog.load(path)
+
+
 def read_dir_meta(path: str) -> dict:
     """``meta.json`` of a catalog directory: ``layout`` is ``dir-v1`` for
     this package's memory-mapped format, ``ocdbt-v1`` for the JAX package's

@@ -24,8 +24,12 @@ The certified tier ports the JAX package's
     depth-3 rescan of <= 32 failures    kernel 1 again (v3 only)
     oracle for what still fails         ops/similarity.py, fixed order
 
-Every answer equals the fixed-order fp32 oracle's index for index: the
-rerank and the fallback oracle both score with
+The approx tier (`approx_retrieve`, `ApproxRetriever`; JAX fused_topk.py
+:674-784) runs the first three steps alone: no rerank, no certificate, no
+fp32 catalog on the device.
+
+Every certified answer equals the fixed-order fp32 oracle's index for
+index: the rerank and the fallback oracle both score with
 `similarity.fixed_order_dots`, a query whose certificate holds is provably
 exact, and every other query is served by that oracle.  Against the
 matrix-product oracle (`similarity.exact_topk`, cuBLAS on the card), which
@@ -54,6 +58,7 @@ TPU or on XLA (also listed in ROADMAP.md section 3):
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -480,22 +485,31 @@ def build_certified_layout(
     )
 
 
+def _put(a, device: torch.device, dtype=torch.float32) -> torch.Tensor:
+    """A host array as a tensor of `dtype` on `device` (a copy: `a` may be
+    read-only)."""
+    return torch.from_numpy(np.array(a)).to(dtype).to(device)
+
+
+def _put_planes(layout, device: torch.device):
+    """The split planes (bf16; the cast on the host is exact, they hold
+    bf16 values) and the (Np,) raw norms of a layout, on `device`."""
+    return (_put(layout.ft, device, torch.bfloat16),
+            _put(np.asarray(layout.nrm_row, np.float32).reshape(-1), device))
+
+
 def layout_to_device(layout, device: torch.device) -> DeviceLayout:
     """A numpy `CertifiedLayout` (built by this package or by the JAX
-    package) as tensors on `device`.  The planes are cast to bf16 on the
-    host, which is exact: they hold bf16 values."""
-
-    def put(a, dtype=torch.float32):   # a copy: `a` may be read-only
-        return torch.from_numpy(np.array(a)).to(dtype).to(device)
-
+    package) as tensors on `device`."""
+    ft, nrm_row = _put_planes(layout, device)
     return DeviceLayout(
         w=int(layout.w),
         depth=int(layout.depth),
         scan=str(layout.scan),
-        ft=put(layout.ft, torch.bfloat16),
-        nrm_row=put(np.asarray(layout.nrm_row, np.float32).reshape(-1)),
-        feats32=put(layout.feats32),
-        norms1d=put(layout.norms1d),
+        ft=ft,
+        nrm_row=nrm_row,
+        feats32=_put(layout.feats32, device),
+        norms1d=_put(layout.norms1d, device),
         rn_min=float(layout.rn_min),
     )
 
@@ -619,6 +633,8 @@ class CertifiedRetriever:
         self._large_k_warned = False
         self.fallbacks = 0     # queries served by the oracle
         self.escalations = 0   # queries rescanned at the escalation depth
+        # the counters' lock: a service calls one retriever from threads
+        self._count_lock = threading.Lock()
 
     def _warn_large_k(self, k: int) -> None:
         if not self._large_k_warned:
@@ -685,14 +701,16 @@ class CertifiedRetriever:
                 queries[eidx], qn[eidx], a2, c2, b2, excl[eidx], dl,
                 self.num_items, k=k, eps=eps, ceps=self._ceps,
             )
-            self.escalations += eidx.numel()
+            with self._count_lock:
+                self.escalations += eidx.numel()
             upd = eidx[ok2]
             top_s[upd] = ts2[ok2]
             top_i[upd] = ti2[ok2]
             ok[upd] = True
             fail = torch.nonzero(~ok)[:, 0]
         if fail.numel():
-            self.fallbacks += fail.numel()
+            with self._count_lock:
+                self.fallbacks += fail.numel()
             fs, fi = self._oracle(queries[fail], k, excl[fail])
             top_s[fail] = fs
             top_i[fail] = fi
@@ -711,3 +729,101 @@ class CertifiedRetriever:
         under deferred syncs; here every failing query goes to the oracle
         within the call that found it."""
         return 0
+
+
+def approx_retrieve(
+    queries: torch.Tensor,   # (B, F) fp32 raw queries
+    excl: torch.Tensor,      # (B,) int64 excluded rows (-1 = none)
+    ft: torch.Tensor,        # (2F, Np) bf16 split planes of the unit rows
+    nrm_row: torch.Tensor,   # (Np,) fp32 raw norms, zero on pad columns
+    nvalid: int,             # true item count
+    *,
+    k: int,
+    c: int,
+    w: int,
+    depth: int,
+    eps: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate top-k (`_approx_retrieve`, fused_topk.py:678): the unit
+    queries' split (kernel 2), one v3 bin scan to the top-`c` (kernel 1),
+    then the candidates masked and cut to k; no rerank, no certificate.
+
+    Scores are the split-plane cosines, within BF16X2_EPS of the exact
+    ones, clipped to [-1, 1].  Two departures from the JAX function, each a
+    fault it has (ROADMAP 3d):
+    - a candidate with qn * norm <= eps scores 0, the exact tier's guard
+      (the JAX tier stores tiny rows as unit vectors and scores them ~1);
+    - a slot left without a valid candidate (pad columns, which score 0 on
+      the zero pad planes, can crowd every bin of a query anti-aligned with
+      the catalog) is (-inf, -1), never a pad index or the excluded row.
+    The top-k is stable over the scan's order (value descending, slot
+    ascending), as `lax.top_k` there."""
+    qn = similarity.row_norms(queries)
+    qh, ql = split_bf16x2(queries / qn.clamp_min(1e-30)[:, None])
+    # [qh,ql | ql,qh] against [hi;lo]: qh·hi + ql·lo + ql·hi + qh·lo
+    q2 = torch.cat([qh, ql, ql, qh], dim=1)
+    a_s, cand, _ = scan_v3(q2, ft, w=w, depth=depth, topc=c)
+    cand = cand.long()
+    bad = (cand < 0) | (cand >= nvalid) | (cand == excl[:, None])
+    guard = qn[:, None] * nrm_row[cand.clamp(0, nrm_row.shape[0] - 1)] <= eps
+    a_s = torch.where(bad, NEG_INF,
+                      torch.where(guard, 0.0, torch.clamp(a_s, -1.0, 1.0)))
+    top_s, pos = topk_stable(a_s, k)
+    top_i = torch.gather(cand, 1, pos)
+    return top_s, top_i.masked_fill(top_s == NEG_INF, -1)
+
+
+class ApproxRetriever:
+    """Speed tier: kernel 1 alone, without the certified tier's rerank,
+    certificate or fp32 catalog (`ApproxRetriever`, fused_topk.py:720).
+
+    The device holds only the split planes [hi; lo] of the unit rows and
+    the raw norms (the guard's), about 2/3 of the certified tier's bytes.
+    Scores err by at most BF16X2_EPS.  A true top-k item is missed when
+    more than `depth` of the top-k share a bin, or when it scores below 0:
+    the layout's pad columns (up to the catalog tile, 48,576 of them at 1M
+    rows) score 0 on their zero planes, so for a query whose cosines are
+    all negative they take every bin's top slots and the answer comes back
+    short, or empty ((-inf, -1) slots), though the catalog has rows.  The
+    scan carries no column mask to keep them out.  The layout is the
+    certified tier's (`build_certified_layout`), and so are W and the
+    depth."""
+
+    def __init__(
+        self,
+        features: np.ndarray,
+        norms: Optional[np.ndarray],
+        config: Optional[RetrievalConfig],
+        device: torch.device,
+    ) -> None:
+        config = config or RetrievalConfig()
+        feats = np.asarray(features, np.float32)
+        layout = build_certified_layout(feats, norms, config)
+        if device.type == "cuda":
+            check_kernel_bins(layout.w)
+        self.config = config
+        self.device = device
+        self.num_items, self.feature_dim = feats.shape
+        self.w, self.depth = layout.w, layout.depth
+        self.ft, self.nrm_row = _put_planes(layout, device)
+
+    def __call__(
+        self, queries, k: int, exclude_rows=None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, F) queries -> (scores (B, k) fp32, rows (B, k) int64), on the
+        retriever's device; unfilled slots are (-inf, -1)."""
+        q, excl = query_inputs(queries, exclude_rows, self.device,
+                               self.feature_dim)
+        cap = self.depth * self.w
+        if k > cap:
+            raise ValueError(
+                f"k={k} exceeds the approx scan capacity depth*W={cap}; raise "
+                "RetrievalConfig.scan_bins and/or scan_depth (or use the "
+                "certified tier, which falls back to the oracle for large k)"
+            )
+        # a few extra candidates so that the masking after the scan rarely
+        # starves k
+        c = min(max(k + 8, self.config.prefilter), cap)
+        return approx_retrieve(q, excl, self.ft, self.nrm_row, self.num_items,
+                               k=k, c=c, w=self.w, depth=self.depth,
+                               eps=self.config.eps)

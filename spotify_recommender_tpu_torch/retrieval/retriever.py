@@ -11,12 +11,17 @@ Equivalent of the reference's `Recommender` class
   `Recommendation` records;
 - `retrieve()` is batched many-query retrieval.
 
-Three backends, chosen from the config; the device is the caller's:
+Four backends, chosen from the config as the JAX package chooses them
+(its `_select_backend`); the device is the caller's.  The kernel tiers
+launch the hand-written kernels on a CUDA device and run their plain torch
+versions on the CPU.
 
 - "certified" (default): the certified exact tier
   (ops/fused_topk.CertifiedRetriever), with the v3 bin scan or, under
-  `RetrievalConfig(scan="v2")`, the v2 scan.  On a CUDA device it launches
-  the hand-written kernels; on the CPU it runs their plain torch versions.
+  `RetrievalConfig(scan="v2")`, the v2 scan.
+- "approx" (a `dtype` that starts with "bfloat16"): the v3 bin scan alone,
+  no rerank (ops/fused_topk.ApproxRetriever); scores within BF16X2_EPS,
+  recall below 1, and a slot it cannot fill is row -1.
 - "pallas" (`RetrievalConfig(exact_scores=False)`): the fused score +
   top-k kernel over prenormalized fp32 rows (ops/fused_topk.FusedRetriever),
   the JAX package's backend of the same name.
@@ -40,6 +45,7 @@ from spotify_recommender_tpu_torch.core.logging import get_logger
 from spotify_recommender_tpu_torch.data.catalog import Catalog
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.fused_topk import (
+    ApproxRetriever,
     CertifiedRetriever,
     FusedRetriever,
 )
@@ -77,11 +83,6 @@ class Retriever:
                 "a device mesh (sharded catalog) is not ported yet "
                 "(ROADMAP queue 1, multi-GPU)"
             )
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={config.dtype!r}: the approx tier is not ported yet "
-                "(ROADMAP queue 1 item 10)"
-            )
         self.catalog = catalog
         self.config = config
         self.device = resolve_device(device)
@@ -91,7 +92,15 @@ class Retriever:
         self.certified: Optional[CertifiedRetriever] = None
         # the fused kernel's retriever on the "pallas" backend
         self.fused: Optional[FusedRetriever] = None
-        if config.use_pallas and config.exact_scores:
+        # the bin scan alone on the "approx" backend
+        self.approx: Optional[ApproxRetriever] = None
+        if config.use_pallas and config.dtype.startswith("bfloat16"):
+            self._backend = "approx"
+            self.approx = ApproxRetriever(
+                catalog.features, catalog.norms, config, self.device
+            )
+        elif (config.use_pallas and config.exact_scores
+              and config.dtype == "float32"):
             self._backend = "certified"
             self.certified = CertifiedRetriever(
                 catalog.features, catalog.norms, config, self.device
@@ -122,8 +131,9 @@ class Retriever:
         k: Optional[int] = None,
         exclude_rows=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Batched exact top-k: queries (B, F) → (scores (B, k), rows (B, k))
-        as tensors on the retriever's device.
+        """Batched top-k: queries (B, F) → (scores (B, k), rows (B, k)) as
+        tensors on the retriever's device (exact but on the "approx"
+        backend, where an unfilled slot is (-inf, -1)).
 
         `exclude_rows` masks one catalog row per query (self-exclusion);
         -1 disables masking for that query.
@@ -131,6 +141,8 @@ class Retriever:
         k = self.config.top_k if k is None else k
         if self._backend == "certified":
             return self.certified(queries, k, exclude_rows)
+        if self._backend == "approx":
+            return self.approx(queries, k, exclude_rows)
         if self._backend == "pallas":
             return self.fused(queries, k, exclude_rows)
         queries = torch.atleast_2d(
@@ -191,10 +203,14 @@ class Retriever:
     def _materialize(
         self, rows: Sequence[int], scores: Sequence[float]
     ) -> List[Recommendation]:
+        """Records of the rows in order; a -1 row (a slot the approx tier
+        could not fill) is dropped, not read as the last song."""
         cat = self.catalog
         out = []
         for r, s in zip(rows, scores):
             r = int(r)
+            if r < 0:
+                continue
             out.append(
                 Recommendation(
                     row=r,

@@ -1,0 +1,183 @@
+"""The port's benchmark entry on the CPU against the JAX package's
+`benchmark.py`: the same inputs bit for bit, the same metric string and
+`details` keys for each backend (the JAX harness run with its Pallas
+tiers in interpret mode), the JSON line, the suite's rows and budget, and
+the fallback count per batch call."""
+
+import functools
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from spotify_recommender_tpu import benchmark as jbench
+from spotify_recommender_tpu.ops.pallas import fused_topk as jfused
+from spotify_recommender_tpu_torch import benchmark, cli
+from spotify_recommender_tpu_torch.ops import fused_topk
+
+SMALL = dict(num_items=4096, num_queries=16, warmup=1, iters=1)
+
+
+@pytest.mark.parametrize("n,b,dim,seed", [
+    (4096, 16, 12, 0), (1000, 1024, 64, 3), (10, 1, 12, 7),
+])
+def test_make_inputs_bitwise_equal_jax(n, b, dim, seed):
+    for ours, theirs in zip(benchmark._make_inputs(n, b, dim, seed),
+                            jbench._make_inputs(n, b, dim, seed)):
+        assert ours.dtype == theirs.dtype and ours.shape == theirs.shape
+        np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.fixture
+def jax_interpret(monkeypatch):
+    """The JAX harness's Pallas tiers in interpret mode (they do not lower
+    to the CPU otherwise)."""
+    for name in ("FusedRetriever", "ApproxRetriever", "CertifiedRetriever"):
+        monkeypatch.setattr(jfused, name, functools.partial(
+            getattr(jfused, name), interpret=True))
+
+
+@pytest.mark.parametrize("backend", list(benchmark.BACKENDS))
+def test_row_has_the_jax_metric_and_details_keys(backend, jax_interpret):
+    ours = benchmark.run_benchmark(backend=backend, also_b1=True,
+                                   device="cpu", **SMALL)
+    theirs = jbench.run_benchmark(backend=backend, also_b1=True, **SMALL)
+    assert ours.metric == theirs.metric
+    assert ours.unit == theirs.unit
+    assert set(ours.details) == set(theirs.details)
+    assert ours.details["num_items"] == theirs.details["num_items"] == 4096
+    want = {"auto": "oracle", "xla": "oracle", "pallas": "pallas",
+            "bf16": "bf16-approx", "certified": "certified"}[backend]
+    assert ours.details["backend"] == want
+    assert ours.details["platform"] == "cpu"
+    assert ours.value > 0 and ours.vs_baseline == round(
+        ours.value / benchmark.REFERENCE_QPS, 2)
+
+
+def test_to_json_line_round_trips():
+    r = benchmark.run_benchmark(backend="certified", device="cpu", **SMALL)
+    line = benchmark.to_json_line(r)
+    assert "\n" not in line
+    back = json.loads(line)
+    assert benchmark.BenchResult(**back) == r
+    assert list(back) == ["metric", "value", "unit", "vs_baseline", "details"]
+
+
+def test_fallbacks_are_counted_per_batch_call(monkeypatch):
+    """Every query fails its certificate (an impossible margin): each of
+    the B = 16 batch calls sends all 16 queries to the oracle, so the count
+    per batch is 16, whatever the B = 1 calls add.  (The JAX harness divides
+    every call's fallbacks by warmup + iters + 1.)"""
+    monkeypatch.setattr(fused_topk, "BF16X2_EPS", 10.0)
+    r = benchmark.run_benchmark(backend="certified", also_b1=True, reps=2,
+                                device="cpu", **SMALL)
+    assert r.details["certificate_fallback_queries_per_batch"] == 16
+
+
+def test_verify_holds_answers_to_the_oracle(monkeypatch):
+    benchmark.run_benchmark(backend="certified", verify_queries=8,
+                            device="cpu", **SMALL)
+    benchmark.run_benchmark(backend="pallas", verify_queries=8,
+                            device="cpu", **SMALL)
+    with pytest.raises(ValueError, match="exact backend"):
+        benchmark.run_benchmark(backend="bf16", verify_queries=8,
+                                device="cpu", **SMALL)
+    # a tier whose answers are wrong is caught
+    real = fused_topk.CertifiedRetriever.__call__
+
+    def off_by_one(self, q, k, excl=None):
+        s, i = real(self, q, k, excl)
+        return s, (i + 1) % self.num_items
+
+    monkeypatch.setattr(fused_topk.CertifiedRetriever, "__call__", off_by_one)
+    with pytest.raises(AssertionError, match="fixed-order oracle"):
+        benchmark.run_benchmark(backend="certified", verify_queries=8,
+                                device="cpu", **SMALL)
+
+
+@pytest.fixture
+def small_rows(monkeypatch):
+    """The suite's rows at CPU sizes: each row's own arguments, but few
+    items and queries."""
+    rb, rs, rst = (benchmark.run_benchmark, benchmark.run_serve_row,
+                   benchmark.run_streaming_row)
+
+    def run_benchmark(**kw):
+        kw.update(num_items=min(kw["num_items"], 5000), num_queries=16,
+                  backend=kw.get("backend", "certified"))
+        return rb(**kw)
+
+    monkeypatch.setattr(benchmark, "run_benchmark", run_benchmark)
+    monkeypatch.setattr(benchmark, "run_serve_row", functools.partial(
+        rs, num_items=3000, n_clients=4, reqs_each=2, max_queue=8))
+    monkeypatch.setattr(benchmark, "run_streaming_row", functools.partial(
+        rst, num_items=20000, num_queries=8, window=4096))
+
+
+def test_suite_records_skipped_rows_under_a_zero_budget(small_rows, capsys):
+    r = benchmark.run_benchmark_suite(time_budget_s=0.0, device="cpu")
+    assert r.details["skipped_rows"] == ["10M", "serve", "streaming",
+                                         "64dim", "bf16"]
+    head = capsys.readouterr().out.splitlines()
+    assert len(head) == 1 and json.loads(head[0])["metric"] == r.metric
+
+
+def test_suite_runs_every_row(small_rows, capsys):
+    r = benchmark.run_benchmark_suite(time_budget_s=600.0, device="cpu")
+    d = r.details
+    assert "skipped_rows" not in d
+    for key in ("exact_10M_qps", "exact_10M_batch_ms", "exact_10M_stream_GBps",
+                "exact_10M_B1_latency_ms", "exact_10M_B1_stream_GBps",
+                "serve_req_per_s", "serve_p50_ms", "serve_p95_ms",
+                "serve_p99_ms", "serve_errors", "serve_burst_requests",
+                "serve_burst_rejected_429", "streaming_qps", "streaming_GBps",
+                "hostlink_GBps", "streaming_link_efficiency",
+                "exact_1M_64dim_qps", "approx_bf16_1M_qps"):
+        assert key in d, key
+    assert d["serve_errors"] == 0
+    assert 0 <= d["serve_burst_rejected_429"] <= d["serve_burst_requests"]
+    assert not any(k.startswith(("mf_", "two_tower_")) for k in d)
+
+
+def test_a_failing_row_raises(small_rows, monkeypatch):
+    def broken(**kw):
+        raise RuntimeError("serve row broke")
+
+    monkeypatch.setattr(benchmark, "run_serve_row", broken)
+    with pytest.raises(RuntimeError, match="serve row broke"):
+        benchmark.run_benchmark_suite(time_budget_s=600.0, device="cpu")
+
+
+def test_main_prints_the_headline_then_the_suite_line(small_rows, capsys):
+    assert benchmark.main(["--device", "cpu", "--time-budget", "0"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 2
+    first, last = map(json.loads, lines)
+    assert first["metric"] == last["metric"]
+    assert "skipped_rows" not in first["details"]
+    assert last["details"]["skipped_rows"][0] == "10M"
+
+
+def test_main_needs_a_card_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        benchmark.main([])
+
+
+@pytest.mark.parametrize("backend", ["bf16", "certified"])
+def test_cli_benchmark(backend, capsys):
+    rc = cli.main(["--device", "cpu", "benchmark", "--items", "3000",
+                   "--queries", "8", "--backend", backend])
+    assert rc == 0
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    kind = "approx" if backend == "bf16" else "exact"
+    assert json.loads(out)["metric"] == (
+        f"queries/sec/chip {kind} top-10 over 3000 items")
+
+
+@pytest.mark.parametrize("command", cli.NOT_PORTED)
+def test_unported_subcommands_still_exit_1(command, capsys):
+    assert cli.main(["--device", "cpu", command]) == 1
+    assert "not ported" in capsys.readouterr().err

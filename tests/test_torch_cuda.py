@@ -114,6 +114,23 @@ def test_scan_equals_plain(cuda, depth):
     assert torch.equal(ob, pb)
 
 
+@pytest.mark.parametrize("w,depth", [(128, 2), (128, 3), (256, 2)])
+def test_scan_64_features_equal_plain(cuda, w, depth):
+    """Kernel 1 at F = 64 (the benchmark's 64-dim row): its 2F = 128 plane
+    rows leave room for fewer column groups per tile than at F = 12."""
+    rng = np.random.default_rng(w + depth)
+    feats = rng.random((20011, 64), dtype=np.float32)
+    lay = build_certified_layout(feats, None, RetrievalConfig(scan_bins=w))
+    ft = layout_to_device(lay, cuda).ft
+    q = torch.from_numpy(feats[rng.integers(0, 20011, 40)]).to(cuda)
+    qh, ql = split_bf16x2_plain(q / similarity.row_norms(q)[:, None])
+    q2 = torch.cat([qh, ql, ql, qh], dim=1)
+    out = scan_v3(q2, ft, w=w, depth=depth, topc=32)
+    torch.cuda.synchronize()
+    for o, p in zip(out, scan_v3_plain(q2, ft, w=w, depth=depth, topc=32)):
+        assert torch.equal(o, p)
+
+
 @pytest.mark.parametrize("w,depth", [(256, 2), (256, 3), (384, 3), (512, 2),
                                      (512, 3), (768, 2), (1024, 2), (1024, 4)])
 def test_scan_wide_bins_equal_plain(cuda, w, depth):

@@ -260,9 +260,11 @@ class TestRetrieverBackends:
 
     @pytest.mark.parametrize("dtype", ["bfloat16", "bfloat16x2"])
     def test_bf16_still_raises_with_a_pointer(self, dtype):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 10"):
-            Retriever(_catalog(50, seed=31),
+        """bf16 storage no longer raises: the Retriever serves it with the
+        approx tier (tests/test_torch_approx.py), not kernel 3."""
+        r = Retriever(_catalog(500, seed=31),
                       RetrievalConfig(dtype=dtype, exact_scores=False), CPU)
+        assert r.backend == "approx" and r.fused is None
 
     def test_exact_scores_keep_the_certified_backend(self):
         r = Retriever(_catalog(300, seed=32), None, CPU)
