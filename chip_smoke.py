@@ -55,7 +55,22 @@ its plain torch version on the card, runs the reference-style CLI on a
   reps 3, B = 1 too), the bf16 (approx) row and the 64-dim row, whose
   answers for 64 queries equal the fixed-order oracle's index for index;
   one batch of the 64-dim tier (the "scan_v3_f64" entry's launches), and
-  kernels 1 and 2 at F = 64 against their plain versions.
+  kernels 1 and 2 at F = 64 against their plain versions;
+- phase 17: the matrix-factorization path at BASELINE config 3 (100,000
+  users x 20,000 items x 20 plays, d = 64; `experiments.als_scale_1m`'s
+  generator): 3 ALS iterations (each half's and the Cholesky's ms, peak
+  memory, finite factors), 2 + 1 checkpointed iterations equal to 3
+  within 1e-4, two iALS++ sweeps (subspace 16), recall@10 / NDCG@10 of
+  10,000 held-out users through `mips_topk_chunked` (1,000 of them equal
+  on the CPU up to counted near-ties within 1e-6), 200 SGD steps of 8192
+  at the default lr (the loss rises there, as the JAX package's does on
+  the same batches; the first 20 steps' losses within 1e-4 of the CPU
+  port's) and at lr 0.01 (the loss must fall), the benchmark's MF quality
+  row on the card within 0.002 of the CPU's with its data's digests
+  (`benchmark.quality_data_digests`), and the item factors through
+  `embed-catalog --mf` into the certified tier (1024 user queries, k = 10,
+  bitwise the fixed-order oracle; kernels 1 and 2 at F = 64 against their
+  plain versions, the "scan_v3_mf" entry).
 
 Every phase prints one line; any failure raises and exits non-zero.  The
 next-to-last line is a JSON object of the kernels (launches on the main
@@ -93,7 +108,10 @@ if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch sees no CUDA device")
 
 from spotify_recommender_tpu_torch import benchmark, cli  # noqa: E402
-from spotify_recommender_tpu_torch.core.config import RetrievalConfig  # noqa: E402
+from spotify_recommender_tpu_torch.core.config import (  # noqa: E402
+    MFConfig,
+    RetrievalConfig,
+)
 from spotify_recommender_tpu_torch.core.device import (  # noqa: E402
     device_info,
     nvidia_smi,
@@ -101,6 +119,7 @@ from spotify_recommender_tpu_torch.core.device import (  # noqa: E402
 from spotify_recommender_tpu_torch.core.timing import sync_ms  # noqa: E402
 from spotify_recommender_tpu_torch.data.catalog import Catalog  # noqa: E402
 from spotify_recommender_tpu_torch.experiments import (  # noqa: E402
+    als_scale_1m,
     certified_proto,
     kernel_ablation_r2,
     kernel_ablation_r2b,
@@ -109,6 +128,7 @@ from spotify_recommender_tpu_torch.experiments import (  # noqa: E402
     kernel_ablation_r2e,
     kernel_r3,
 )
+from spotify_recommender_tpu_torch.models import mf  # noqa: E402
 from spotify_recommender_tpu_torch.ops import similarity  # noqa: E402
 from spotify_recommender_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
@@ -862,6 +882,202 @@ def bench_phase(kernels: dict, launches: dict, n: int, b: int) -> None:
           f"{time.perf_counter() - t16:.1f} s")
 
 
+MF_USERS, MF_ITEMS, MF_PER_USER = 100_000, 20_000, 20   # BASELINE config 3
+MF_EVAL_CPU = 1000       # of the 10,000 evaluated users, also on the CPU
+
+
+def mips_near_ties(q, items, gi, ci, gs, cs) -> int:
+    """The card's and the CPU's MIPS top-k (indices gi / ci, scores gs / cs)
+    agree within 1e-6 in score, and where an index differs the two items
+    score within 1e-6 of each other (fp64 dots).  Returns the differing
+    slots."""
+    err = (gs - cs).abs().max().item()
+    check(err <= 1e-6, f"MIPS card vs CPU: scores differ by {err}")
+    diff = gi != ci
+    if diff.any():
+        q64, it64 = q.double(), items.double()
+        rows = diff.nonzero()[:, 0]
+        sg = (q64[rows] * it64[gi[diff]]).sum(1)
+        sc = (q64[rows] * it64[ci[diff]]).sum(1)
+        gap = (sg - sc).abs().max().item()
+        check(gap <= 1e-6, f"MIPS card vs CPU: an index differs at a gap "
+              f"of {gap} (not a near-tie)")
+    return int(diff.sum().item())
+
+
+def mf_phase(kernels: dict, launches: dict) -> None:
+    """Phase 17: the MF path at BASELINE config 3 (100,000 users x 20,000
+    items, 20 plays each, d = 64): the workload's host steps, full ALS (3
+    iterations, per-half and Cholesky ms, peak memory), a checkpointed
+    resume, two iALS++ sweeps, evaluation on 10,000 held-out users (1,000 of
+    them also on the CPU), 200 SGD steps, the benchmark's MF quality row on
+    the card and the CPU, then the item factors served by the certified
+    tier at F = 64 through `embed-catalog --mf` (kernels 1 and 2; the
+    "scan_v3_mf" entry)."""
+    t17 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    data = als_scale_1m.prepare(MF_USERS, MF_ITEMS, MF_PER_USER)
+    host = data["seconds"]
+    train, item_view = data["train"], data["item_view"]
+    cfg = MFConfig(embedding_dim=64, num_iterations=3, reg=0.05, alpha=10.0)
+
+    stats = {}
+    t0 = time.perf_counter()
+    users, items = mf.train_als(train, cfg, item_view=item_view, device=DEV,
+                                stats=stats)
+    als_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(np.isfinite(users).all() and np.isfinite(items).all(),
+          "ALS factors are not finite")
+    with tempfile.TemporaryDirectory() as ck:
+        mf.train_als(train, MFConfig(**{**vars(cfg), "num_iterations": 2}),
+                     item_view=item_view, checkpoint_dir=ck, device=DEV)
+        t0 = time.perf_counter()
+        ru, ri = mf.train_als(train, cfg, item_view=item_view,
+                              checkpoint_dir=ck, device=DEV)
+        resume_s = time.perf_counter() - t0
+    resume_err = max(np.abs(ru - users).max(), np.abs(ri - items).max())
+    check(resume_err <= 1e-4, f"resumed ALS differs by {resume_err}")
+    pp = {}      # two sweeps: the first pays the 16 x 16 solver's warm-up
+    mf.train_als(train, MFConfig(**{**vars(cfg), "num_iterations": 2}),
+                 item_view=item_view, subspace=16, device=DEV, stats=pp)
+
+    rows = als_scale_1m.eval_users(data)
+    t0 = time.perf_counter()
+    m = als_scale_1m.evaluate(users, items, data, rows, DEV)
+    eval_s = time.perf_counter() - t0
+    check(m["num_eval_users"] == len(rows) == 10_000
+          and 0 < m["ndcg@k"] <= m["recall@k"] <= 1, f"evaluation {m}")
+    sub = rows[:MF_EVAL_CPU]
+    args = [torch.from_numpy(a) for a in (
+        users[sub], items, data["seen_idx"][sub], data["seen_mask"][sub])]
+    gs, gi = similarity.mips_topk_chunked(*[a.to(DEV) for a in args], k=10)
+    cs, ci = similarity.mips_topk_chunked(*args, k=10)
+    ties = mips_near_ties(args[0], args[1], gi.cpu(), ci, gs.cpu(), cs)
+
+    # SGD, 200 steps of 8192.  At the default lr (0.05) the sampled loss
+    # rises at this size, in the JAX package as in the port (both on the
+    # CPU, the same batches: tests/test_torch_mf.py
+    # test_train_sgd_default_lr_at_config3_matches_jax), so there the card's
+    # losses are held to the CPU port's over the first 20 steps, each
+    # within 1e-4 (the port vs JAX on the CPU: 1.2e-5); at lr 0.01 the loss
+    # must fall
+    sgd, traces = {}, {}
+    for lr in (MFConfig.learning_rate, 0.01):
+        traces[lr] = []
+        t0 = time.perf_counter()
+        mf.train_sgd(train, MFConfig(embedding_dim=64, reg=0.05, alpha=10.0,
+                                     learning_rate=lr),
+                     num_steps=200, device=DEV, losses=traces[lr])
+        sgd[lr] = ((time.perf_counter() - t0) * 1e3 / 200,
+                   np.mean(traces[lr][:20]), np.mean(traces[lr][-20:]))
+        check(np.isfinite(traces[lr]).all(), f"SGD lr {lr}: loss not finite")
+    cpu_losses = []
+    mf.train_sgd(train, MFConfig(embedding_dim=64, reg=0.05, alpha=10.0),
+                 num_steps=20, device="cpu", losses=cpu_losses)
+    cpu_losses = np.asarray(cpu_losses)
+    sgd_gap = float(np.max(np.abs(
+        np.asarray(traces[MFConfig.learning_rate][:20]) - cpu_losses)
+        / cpu_losses))
+    check(sgd_gap <= 1e-4, f"SGD at lr {MFConfig.learning_rate}: a card "
+          f"step's loss differs from the CPU port's by {sgd_gap} (relative)")
+    sgd_ms, first, last = sgd[0.01]
+    check(last < first, f"SGD loss did not fall at lr 0.01: {first} -> {last}")
+
+    t0 = time.perf_counter()
+    q_card = benchmark.run_quality_row(device=DEV)
+    q_card_s = time.perf_counter() - t0
+    q_cpu = benchmark.run_quality_row(device="cpu")
+    q_digests = benchmark.quality_data_digests()
+    q_gap = max(abs(q_card[key] - q_cpu[key]) for key in q_card)
+    check(q_gap <= 0.002, f"quality row: card {q_card} vs CPU {q_cpu}")
+
+    # the item factors as a 64-dim catalog, served by the certified tier
+    with tempfile.TemporaryDirectory() as tmp:
+        base, model, emb = (str(Path(tmp) / f) for f in
+                            ("base.npz", "mf.npz", "emb.npz"))
+        benchmark._serve_catalog(
+            np.zeros((MF_ITEMS, 12), np.float32)).save(base)
+        mf.save_model(model, users, items, cfg)
+        run_cli(["--device", "cuda", "embed-catalog", "--catalog", base,
+                 "--mf", model, "-o", emb])
+        cat = Catalog.load(emb)
+    check(np.array_equal(cat.features, items), "embedded catalog != factors")
+    retriever = Retriever(cat, None, DEV)
+    q = torch.from_numpy(users[rows[:1024]]).to(DEV)
+    split_bf16x2.launches = scan_v3.launches = 0
+    s, i = retriever.retrieve(q, k=10)
+    torch.cuda.synchronize()
+    launches["scan_v3_mf"] = scan_v3.launches
+    check(split_bf16x2.launches > 0 and scan_v3.launches > 0,
+          "MF catalog batch: a kernel of the path did not launch")
+    f_dev = torch.from_numpy(cat.features).to(DEV)
+    n_dev = torch.from_numpy(cat.norms).to(DEV)
+    fs, fi = similarity.exact_topk_chunked(q, f_dev, n_dev, k=10,
+                                           fixed_order=True)
+    check(torch.equal(i, fi) and torch.equal(s, fs),
+          "MF catalog: certified answers are not the fixed-order oracle's")
+    serve_ms = wall_ms(lambda: retriever.retrieve(q, k=10), 10)
+    dl = retriever.certified.layout
+    qu = q / similarity.row_norms(q).clamp_min(1e-30)[:, None]
+    hi, lo = split_bf16x2(qu)
+    phi, plo = split_bf16x2_plain(qu)
+    torch.cuda.synchronize()
+    check(torch.equal(hi.view(torch.int16), phi.view(torch.int16))
+          and torch.equal(lo.view(torch.int16), plo.view(torch.int16)),
+          "split kernel differs from plain on the MF queries")
+    q2 = torch.cat([hi, lo, lo, hi], dim=1)
+    err, _, out = compare_scan(q2, dl.ft, 2, 32)
+    # the bound counts the catalog's own columns, not the layout's padding
+    real = dl.ft[:, :len(cat)]
+    kernels["scan_v3_mf"] = dict(
+        source=f"{CSRC}/scan_v3.cu", replaces=f"{PALLAS}:1069",
+        max_abs_err=err,
+        ms=sync_ms(lambda: scan_v3(q2, dl.ft, w=128, depth=2, topc=32), 10),
+        plain_ms=sync_ms(lambda: scan_v3_plain(q2, dl.ft, w=128, depth=2,
+                                               topc=32), 1),
+        **bound(dot_flops(q2, real, q2.shape[1]), "bf16", q2, real, *out),
+        library_ms=None,
+    )
+    cols = dl.ft.shape[1]
+    del retriever, dl, out, f_dev
+
+    def per_iter(st, name):
+        return "/".join(f"{v:.1f}" for v in st[f"{name}_ms"])
+
+    print(f"phase 17 MF (config 3: {MF_USERS} users x {MF_ITEMS} items, "
+          f"{data['nnz']} plays, user md {train.item_idx.shape[1]}, item md "
+          f"{item_view.item_idx.shape[1]}): host datagen "
+          f"{host['datagen']:.2f} s, from_coo {host['from_coo']:.2f} s, split "
+          f"{host['split']:.2f} s, transpose {host['transpose']:.2f} s; ALS d=64 "
+          f"x3 in {als_s:.2f} s: ms per iteration user half "
+          f"{per_iter(stats, 'user')}, item half {per_iter(stats, 'item')}, "
+          f"Cholesky (factor + solve) inside them {per_iter(stats, 'chol')}; "
+          f"peak memory {peak_gib:.2f} GiB; resume (2 + 1 iterations) equals "
+          f"3 uninterrupted within {resume_err:.3g} (resumed iteration "
+          f"{resume_s:.2f} s); iALS++ subspace 16, 2 iterations: user "
+          f"{per_iter(pp, 'user')} ms, item {per_iter(pp, 'item')} ms, "
+          f"Cholesky {per_iter(pp, 'chol')} ms; eval 10000 users: recall@10 "
+          f"{m['recall@k']:.4f}, NDCG@10 {m['ndcg@k']:.4f} in {eval_s:.2f} s; "
+          f"top-10 of {MF_EVAL_CPU} users equal on the CPU but {ties} slots "
+          f"at near-ties (<= 1e-6); SGD 200 steps x 8192, lr 0.01: "
+          f"{sgd_ms:.2f} ms per step, loss (mean of the first / last 20 "
+          f"steps) {first:.4f} -> {last:.4f}; at lr {MFConfig.learning_rate} "
+          f"{sgd[MFConfig.learning_rate][1]:.4f} -> "
+          f"{sgd[MFConfig.learning_rate][2]:.4f}, its first 20 steps' losses "
+          f"within {sgd_gap:.3g} (relative) of the CPU port's; quality row "
+          f"card {q_card} in {q_card_s:.2f} s, CPU {q_cpu}, its data's "
+          f"digests {q_digests}; MF catalog ({MF_ITEMS} x 64) served "
+          f"by the certified tier: 1024 user queries bitwise the fixed-order "
+          f"oracle, {serve_ms:.3f} ms per batch, kernels 1 (1024 x {cols}, "
+          f"depth 2) and 2 bitwise their plain versions: "
+          f"{kernels['scan_v3_mf']['ms']:.3f} ms vs plain "
+          f"{kernels['scan_v3_mf']['plain_ms']:.1f} ms, bound "
+          f"{kernels['scan_v3_mf']['bound_ms']:.4f} ms over the {len(cat)} "
+          f"catalog columns ({cols - len(cat)} of padding not counted); "
+          f"host numpy {np.__version__}; {time.perf_counter() - t17:.1f} s")
+
+
 def main() -> None:
     kernels = {}
 
@@ -1583,6 +1799,8 @@ def main() -> None:
     approx_phase(cat, queries, excl, fixed, kernels, launches)
     serve_phase(feats, built[_build.SERVING.name][1])
     bench_phase(kernels, launches, n, b)
+    torch.cuda.empty_cache()
+    mf_phase(kernels, launches)
 
     low = {nm: (kv["ms"], kv["bound_ms"]) for nm, kv in kernels.items()
            if not kv["ms"] >= kv["bound_ms"]}

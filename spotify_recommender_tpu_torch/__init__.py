@@ -14,9 +14,13 @@ Layer map:
 - ``ops``       — torch oracle, top-k merges, the fused and certified tiers
     ``cuda``    — kernel wrappers and the nvcc build (sources in ``csrc/``)
 - ``retrieval`` — catalog index (id/name), Retriever API, streaming tier
+- ``models``    — matrix factorization: ALS, iALS++, SGD, leave-k-out
+  evaluation through the chunked MIPS top-k
+- ``train``     — step-numbered checkpoints (torch.save)
 - ``experiments`` — the bin-scan prototypes (TPU kernels 9-12) and the
   three paths that run them
-- ``cli``       — reference-style flags, `preprocess`, `recommend`, `retrieve`
+- ``cli``       — reference-style flags and the subcommands (retrieval,
+  serving, the benchmark, MF training and evaluation)
 """
 
 from spotify_recommender_tpu_torch.version import __version__

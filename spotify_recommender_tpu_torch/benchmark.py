@@ -3,8 +3,8 @@
 The port of spotify_recommender_tpu/benchmark.py, with its metric string,
 its `details` keys and its rows: the headline (1M items x 12 features,
 B = 1024 catalog-row queries with self-exclusion, k = 10), 10M items at
-B = 1024 and B = 1, serving through the coalescer, the host-streaming
-tier, 64-dimensional features and the approx tier.  The reference's own
+B = 1024 and B = 1, the MF quality row, serving through the coalescer,
+the host-streaming tier, 64-dimensional features and the approx tier.  The reference's own
 headline is ~3.5-5 ms per single query over a 100K-item catalog on an RTX
 3060 (reference ARCHITECTURE.md:242-247), ~250 queries/sec: the
 denominator of `vs_baseline`, though the workload here is 10x that
@@ -27,17 +27,20 @@ Differences from the JAX harness (ROADMAP.md 3b and 3c):
   call's fallbacks, B = 1 calls included, by warmup + iters + 1);
 - no autotune cache is read, and a failing row raises: only the time
   budget skips a row (recorded in `skipped_rows`);
-- the quality row (models are not ported) is left out.
+- the quality row has the MF half only (`mf_als_recall_at_10`,
+  `mf_als_ndcg_at_10`, on the card); the two-tower model is not ported,
+  so the `two_tower_*` keys are absent.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import threading
 import time
-from typing import Callable, Union
+from typing import Callable, Dict, Union
 
 import numpy as np
 import torch
@@ -394,13 +397,87 @@ def run_streaming_row(
     }
 
 
+def run_quality_row(seed: int = 0,
+                    device: Union[str, torch.device] = "cuda") -> dict:
+    """Training-quality metrics (BASELINE 'recall@10 (MF path)'): fixed-seed
+    ALS recall@10 / NDCG@10 on low-rank synthetic implicit feedback, on
+    `device`.  Small fixed workload: the row is a regression tripwire (a
+    training or eval regression shows as a recall drop), not a throughput
+    claim.  The JAX row's two-tower half is not ported."""
+    from spotify_recommender_tpu_torch.core.config import MFConfig
+    from spotify_recommender_tpu_torch.models import mf
+
+    inter, _, _ = mf.synthetic_interactions(
+        num_users=2000, num_items=1000, latent_dim=8, seed=seed
+    )
+    train_i, held_idx, held_mask, seen_idx, seen_mask = (
+        mf.split_leave_k_out_arrays(inter, k=1, seed=seed)
+    )
+    users, items = mf.train_als(
+        train_i,
+        MFConfig(embedding_dim=16, num_iterations=6, reg=0.05, alpha=10.0,
+                 seed=seed),
+        device=device,
+    )
+    eligible = np.nonzero(held_mask.any(axis=1))[0]
+    m = mf.evaluate_ranking_arrays(
+        users, items, eligible, held_idx[eligible], held_mask[eligible],
+        k=10, seen_idx=seen_idx[eligible], seen_mask=seen_mask[eligible],
+        device=device,
+    )
+    return {"mf_als_recall_at_10": round(m["recall@k"], 4),
+            "mf_als_ndcg_at_10": round(m["ndcg@k"], 4)}
+
+
+def quality_data_digests(seed: int = 0) -> Dict[str, str]:
+    """The first 12 hex digits of a sha256 of each step behind the MF
+    quality row's data, so two hosts can tell where their data parts: the
+    draws of `synthetic_interactions(2000, 1000, 8, seed)` replayed one by
+    one (the normals, their product, the sampling weights and their
+    normalization, the weighted choice, the counts), its interactions, and
+    their leave-1-out split.  Printed by chip_smoke.py phase 17; on any
+    host: `python -c "from spotify_recommender_tpu_torch import benchmark;
+    print(benchmark.quality_data_digests())"`."""
+    from spotify_recommender_tpu_torch.models import mf
+
+    def digest(*arrays) -> str:
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()[:12]
+
+    rng = np.random.default_rng(seed)
+    tu = rng.normal(size=(2000, 8)).astype(np.float32)
+    ti = rng.normal(size=(1000, 8)).astype(np.float32)
+    logits = tu @ ti.T
+    weights = np.exp(2.0 * logits)
+    p = weights / weights.sum()
+    flat = rng.choice(2000 * 1000, size=40_000, replace=False, p=p.ravel())
+    counts = 1.0 + rng.poisson(3.0, size=flat.size).astype(np.float32)
+    inter, _, _ = mf.synthetic_interactions(2000, 1000, 8, seed=seed)
+    replay = mf.Interactions.from_coo(*np.divmod(flat, 1000), counts, 2000, 1000)
+    if not all(np.array_equal(getattr(inter, f), getattr(replay, f))
+               for f in ("item_idx", "confidence", "mask")):
+        raise AssertionError("the replayed draws are not synthetic_interactions'")
+    split = mf.split_leave_k_out_arrays(inter, k=1, seed=seed)
+    return {
+        "normal": digest(tu, ti), "logits": digest(logits),
+        "weights": digest(weights), "p": digest(p), "choice": digest(flat),
+        "counts": digest(counts),
+        "interactions": digest(inter.item_idx, inter.confidence, inter.mask),
+        "split": digest(split[0].item_idx, split[0].confidence,
+                        split[0].mask, *split[1:]),
+    }
+
+
 def run_benchmark_suite(
     time_budget_s: float = 420.0,
     device: Union[str, torch.device] = "cuda",
 ) -> BenchResult:
     """The headline 1M exact row, then the auxiliary rows in the details:
-    10M exact (B = 1024 and B = 1), serving (p50/p95/p99, req/s, 429
-    backpressure), host streaming, 64-dim features and the approx tier.
+    10M exact (B = 1024 and B = 1), the MF quality row, serving
+    (p50/p95/p99, req/s, 429 backpressure), host streaming, 64-dim
+    features and the approx tier.
 
     The suite watches a wall-clock budget that starts after the headline
     and skips the remaining auxiliary rows once a row's share of it is
@@ -434,6 +511,8 @@ def run_benchmark_suite(
         ]
         extras["exact_10M_B1_latency_ms"] = r10m.details["b1_latency_ms"]
         extras["exact_10M_B1_stream_GBps"] = r10m.details["b1_stream_GBps"]
+    if budget_left("quality", 0.55 * time_budget_s):
+        extras.update(run_quality_row(device=device))
     if budget_left("serve", 0.7 * time_budget_s):
         extras.update(run_serve_row(device=device))
     if budget_left("streaming", 0.8 * time_budget_s):

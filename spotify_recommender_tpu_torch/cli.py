@@ -10,12 +10,17 @@ the JAX package's two calling styles:
 - subcommands: ``preprocess`` (formats npz and bin), ``recommend``,
   ``retrieve`` (batched query vectors -> top-k; ``--streaming`` streams a
   memory-mapped catalog directory through the device in windows),
-  ``serve`` (the HTTP service, serve/server.py) and ``benchmark`` (one
-  benchmark row as a JSON line, benchmark.py).
+  ``serve`` (the HTTP service, serve/server.py), ``benchmark`` (one
+  benchmark row as a JSON line, benchmark.py), and the matrix-factorization
+  path (models/mf.py): ``train-mf`` (ALS, iALS++ ``--subspace``, SGD;
+  ``--checkpoint-dir`` resumes), ``evaluate-mf``, ``recommend-user`` and
+  ``embed-catalog --mf`` (the item factors as a catalog that ``recommend``,
+  ``retrieve`` and ``serve`` take unchanged).
 
 A global ``--device`` flag (default ``cuda``) names the device retrieval
-runs on; ``--device cuda`` without a card raises.  The JAX package's other
-subcommands are not ported yet and exit 1.
+and training run on; ``--device cuda`` without a card raises.  A ``--mesh``
+exits 1, as do the JAX package's subcommands that are not ported yet
+(``autotune`` and the two-tower ones, ``embed-catalog --two-tower`` too).
 
 The default catalog artifact is ``songs_catalog.npz``, the same file the
 JAX package writes and reads.
@@ -42,10 +47,7 @@ BANNER = """\
 """
 
 # subcommands of the JAX package that this package does not have yet
-NOT_PORTED = (
-    "autotune", "train-mf", "train-two-tower",
-    "evaluate-mf", "recommend-user", "embed-catalog", "evaluate-two-tower",
-)
+NOT_PORTED = ("autotune", "train-two-tower", "evaluate-two-tower")
 
 
 def cmd_preprocess(csv_path: str, output: str, fmt: str = "npz") -> int:
@@ -178,6 +180,132 @@ def cmd_retrieve(args, device: str) -> int:
     return 0
 
 
+def _mesh_not_ported(args) -> bool:
+    """True (with the one-line error) where a sharded run was asked for."""
+    if getattr(args, "mesh", None) or getattr(args, "shard_tables", False):
+        print("Error: --mesh / --shard-tables (sharded training) is not "
+              "ported yet (see ROADMAP.md)", file=sys.stderr)
+        return True
+    return False
+
+
+def cmd_train_mf(args, device: str) -> int:
+    from spotify_recommender_tpu_torch.core.config import MFConfig
+    from spotify_recommender_tpu_torch.models import mf
+
+    if _mesh_not_ported(args):
+        return 1
+    cfg = MFConfig(
+        embedding_dim=args.dim,
+        num_iterations=args.iterations,
+        reg=args.reg,
+        alpha=args.alpha,
+        seed=args.seed,
+    )
+    return mf.train_from_cli(
+        args.interactions, cfg, args.output, solver=args.solver,
+        checkpoint_dir=args.checkpoint_dir, subspace=args.subspace,
+        device=device,
+    )
+
+
+def cmd_evaluate_mf(args, device: str) -> int:
+    from spotify_recommender_tpu_torch.models import mf
+
+    inter = mf.load_interactions(args.interactions)
+    users, items = mf.load_model(args.mf)
+    if users.shape[0] < inter.num_users or items.shape[0] < inter.num_items:
+        print(
+            f"Error: model covers {users.shape[0]} users x {items.shape[0]} "
+            f"items but interactions reference {inter.num_users} x "
+            f"{inter.num_items}",
+            file=sys.stderr,
+        )
+        return 1
+    _, heldout, seen = mf.split_leave_k_out(inter, k=args.holdout, seed=args.seed)
+    m = mf.evaluate_ranking(users, items, heldout, k=args.k, train_mask=seen,
+                            device=device)
+    print(
+        f"recall@{args.k}={m['recall@k']:.4f} ndcg@{args.k}={m['ndcg@k']:.4f} "
+        f"({m['num_eval_users']} users)"
+    )
+    return 0
+
+
+def cmd_recommend_user(args, device: str) -> int:
+    import numpy as np
+
+    from spotify_recommender_tpu_torch.data.catalog import load_catalog
+    from spotify_recommender_tpu_torch.models import mf
+
+    users, items = mf.load_model(args.mf)
+    exclude = (
+        np.asarray([int(x) for x in args.exclude.split(",")], np.int64)
+        if args.exclude
+        else None
+    )
+    try:
+        scores, item_ids = mf.recommend_for_user(
+            users, items, args.user, k=args.n, exclude_items=exclude,
+            device=device,
+        )
+    except IndexError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    names = None
+    if args.catalog:
+        cat = load_catalog(args.catalog)
+        if len(cat) == items.shape[0]:
+            names = cat
+    print(f"Top {len(item_ids)} items for user {args.user}:\n")
+    for rank, (s, i) in enumerate(zip(scores, item_ids), 1):
+        if names is not None:
+            print(
+                f'{rank}. item {i}: "{names.track_names[i]}" '
+                f"({names.artists[i]})  score={s:.4f}"
+            )
+        else:
+            print(f"{rank}. item {i}  score={s:.4f}")
+    return 0
+
+
+def cmd_embed_catalog(args) -> int:
+    """The MF item factors as the catalog's features (host work only)."""
+    import dataclasses
+
+    import numpy as np
+
+    from spotify_recommender_tpu_torch.data.catalog import load_catalog
+    from spotify_recommender_tpu_torch.models import mf
+
+    if args.two_tower:
+        print("Error: 'embed-catalog --two-tower' is not ported to the "
+              "PyTorch package yet (see ROADMAP.md)", file=sys.stderr)
+        return 1
+    cat = load_catalog(args.catalog)
+    _, items = mf.load_model(args.mf)
+    if items.shape[0] != len(cat):
+        print(
+            f"Error: MF model has {items.shape[0]} items but catalog has "
+            f"{len(cat)} — they must be row-aligned",
+            file=sys.stderr,
+        )
+        return 1
+    emb = items.astype(np.float32)
+    out = dataclasses.replace(
+        cat,
+        features=emb,
+        norms=np.linalg.norm(emb, axis=1).astype(np.float32),
+        min_vals=np.zeros(emb.shape[1] - 1, np.float32),
+        max_vals=np.ones(emb.shape[1] - 1, np.float32),
+    )
+    out.save(args.output)
+    print(f"embedded catalog (MF {args.mf}): {len(out)} items x "
+          f"{emb.shape[1]} dims")
+    print(f"saved to: {args.output}")
+    return 0
+
+
 def cmd_serve(args, device: str) -> int:
     from spotify_recommender_tpu_torch.serve.server import serve
 
@@ -256,6 +384,62 @@ def build_parser() -> argparse.ArgumentParser:
     ss.add_argument("--catalog", default=DEFAULT_CATALOG)
     ss.add_argument("--host", default="127.0.0.1")
     ss.add_argument("--port", type=int, default=8000)
+
+    sm = sub.add_parser("train-mf", help="ALS/SGD matrix factorization")
+    sm.add_argument("interactions", help="CSV/npz of (user, item, count)")
+    sm.add_argument("-o", "--output", default="mf_model.npz")
+    sm.add_argument("--dim", type=int, default=64)
+    sm.add_argument("--iterations", type=int, default=10)
+    sm.add_argument("--reg", type=float, default=0.01)
+    sm.add_argument("--alpha", type=float, default=40.0)
+    sm.add_argument("--solver", default="als", choices=["als", "sgd"])
+    sm.add_argument("--seed", type=int, default=0)
+    sm.add_argument("--mesh", default=None,
+                    help="device mesh of the JAX package (not ported: exits 1)")
+    sm.add_argument("--shard-tables", action="store_true",
+                    help="row-shard the factor tables (not ported: exits 1)")
+    sm.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint dir (resume from latest)")
+    sm.add_argument("--subspace", type=int, default=0,
+                    help="iALS++ block size (0 = full ALS solve; e.g. 16 "
+                         "at --dim 64 for ~4x cheaper sweeps)")
+
+    sev = sub.add_parser(
+        "evaluate-mf", help="recall@k / NDCG@k of an MF model on held-out data"
+    )
+    sev.add_argument("interactions", help="CSV/npz of (user, item, count)")
+    sev.add_argument("--mf", required=True, help="MF model .npz")
+    sev.add_argument("-k", type=int, default=10)
+    sev.add_argument("--holdout", type=int, default=2,
+                     help="interactions held out per user")
+    sev.add_argument("--seed", type=int, default=0)
+
+    su = sub.add_parser(
+        "recommend-user", help="top-N items for a user from a trained MF model"
+    )
+    su.add_argument("--mf", required=True, help="MF model .npz")
+    su.add_argument("--user", type=int, required=True)
+    su.add_argument("-n", type=int, default=10)
+    su.add_argument(
+        "--catalog", default=None,
+        help="optional catalog for item names (rows must align with MF items)",
+    )
+    su.add_argument(
+        "--exclude", default=None,
+        help="comma-separated item ids to exclude (e.g. already-consumed)",
+    )
+
+    se = sub.add_parser(
+        "embed-catalog",
+        help="re-embed a catalog with a trained model; output plugs into "
+        "recommend/serve unchanged (learned and hand-crafted embeddings "
+        "share one serving path)",
+    )
+    se.add_argument("--catalog", default=DEFAULT_CATALOG)
+    g2 = se.add_mutually_exclusive_group(required=True)
+    g2.add_argument("--two-tower", help="two-tower model (not ported: exits 1)")
+    g2.add_argument("--mf", help="MF model .npz (item factors)")
+    se.add_argument("-o", "--output", default="embedded_catalog.npz")
     return p
 
 
@@ -337,6 +521,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_benchmark(args, device)
     if args.command == "serve":
         return cmd_serve(args, device)
+    if args.command == "train-mf":
+        return cmd_train_mf(args, device)
+    if args.command == "evaluate-mf":
+        return cmd_evaluate_mf(args, device)
+    if args.command == "recommend-user":
+        return cmd_recommend_user(args, device)
+    if args.command == "embed-catalog":
+        return cmd_embed_catalog(args)
     parser.print_help()
     return 1
 

@@ -1,4 +1,4 @@
-"""Typed configuration for the retrieval path.
+"""Typed configuration for the retrieval and training paths.
 
 The reference exposes its knobs as hardcoded constants and argv flags
 (reference main.cpp:144-180, Song.h:12, DataManager.cpp:168,292,
@@ -88,3 +88,17 @@ class RetrievalConfig:
     # (see ops/fused_topk.py BF16X2_EPS derivation); the certified
     # tier's exactness certificate uses this margin.
     certify_eps: float = 2e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class MFConfig:
+    """Matrix-factorization trainer (ALS + SGD variants)."""
+
+    embedding_dim: int = 64
+    reg: float = 0.01          # L2 regularization lambda
+    alpha: float = 40.0        # implicit-feedback confidence scale (iALS)
+    num_iterations: int = 10   # ALS sweeps
+    learning_rate: float = 0.05  # SGD variant
+    batch_size: int = 8192
+    seed: int = 0
+

@@ -186,3 +186,51 @@ def exact_topk_chunked(
             ch_pos = torch.nn.functional.pad(ch_pos, (0, pad), value=-1 - off)
         best_s, best_i = merge_topk(best_s, best_i, ch_s, ch_pos + off, k)
     return best_s, best_i
+
+
+def mips_topk_chunked(
+    queries: torch.Tensor,
+    items: torch.Tensor,
+    seen_idx: Optional[torch.Tensor] = None,
+    seen_mask: Optional[torch.Tensor] = None,
+    k: int = 10,
+    chunk: int = 131072,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact maximum-inner-product top-k over item chunks in ascending
+    index order.
+
+    The MF serving primitive (BASELINE config 3): raw fp32 dot scores (no
+    cosine epilogue; TF32 must be off, see `disable_tf32`), optional
+    per-query *set* exclusion (padded-ragged `seen_idx` (B, S) with
+    `seen_mask` (B, S), e.g. each user's training positives), O(B x chunk)
+    memory: at B = 4096 and the default chunk one score block is 2 GiB of
+    fp32.  Ties break toward the lower item index (`topk_stable` per chunk,
+    `merge_topk` favors the earlier list).  As in the JAX function, columns
+    past N score -inf and, where fewer than k columns are finite, fill the
+    answer with their own indices (>= N) after the excluded ones."""
+    queries = queries.to(torch.float32)
+    items = items.to(torch.float32)
+    n, b = items.shape[0], queries.shape[0]
+    chunk = min(chunk, max(k, n))
+    dev = queries.device
+    best_s = torch.full((b, k), NEG_INF, dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    for off in range(0, n, chunk):
+        scores = queries @ items[off:off + chunk].T          # (B, c), c <= chunk
+        width = scores.shape[1]
+        if seen_idx is not None:
+            local = seen_idx.long() - off                    # (B, S)
+            in_chunk = (local >= 0) & (local < width)
+            if seen_mask is not None:
+                in_chunk &= seen_mask.bool()
+            # scatter-min: -inf where a seen entry lands in this chunk, +inf
+            # (no-op) elsewhere; padded entries collide harmlessly at 0
+            upd = torch.where(in_chunk, NEG_INF, float("inf"))
+            scores = scores.scatter_reduce(
+                1, local.clamp(0, width - 1), upd, reduce="amin")
+        if width < k:        # the JAX chunk's -inf columns past N
+            scores = torch.nn.functional.pad(scores, (0, k - width),
+                                             value=NEG_INF)
+        ch_s, ch_pos = topk_stable(scores, k)
+        best_s, best_i = merge_topk(best_s, best_i, ch_s, ch_pos + off, k)
+    return best_s, best_i

@@ -117,8 +117,8 @@ def small_rows(monkeypatch):
 
 def test_suite_records_skipped_rows_under_a_zero_budget(small_rows, capsys):
     r = benchmark.run_benchmark_suite(time_budget_s=0.0, device="cpu")
-    assert r.details["skipped_rows"] == ["10M", "serve", "streaming",
-                                         "64dim", "bf16"]
+    assert r.details["skipped_rows"] == ["10M", "quality", "serve",
+                                         "streaming", "64dim", "bf16"]
     head = capsys.readouterr().out.splitlines()
     assert len(head) == 1 and json.loads(head[0])["metric"] == r.metric
 
@@ -133,11 +133,12 @@ def test_suite_runs_every_row(small_rows, capsys):
                 "serve_p99_ms", "serve_errors", "serve_burst_requests",
                 "serve_burst_rejected_429", "streaming_qps", "streaming_GBps",
                 "hostlink_GBps", "streaming_link_efficiency",
-                "exact_1M_64dim_qps", "approx_bf16_1M_qps"):
+                "exact_1M_64dim_qps", "approx_bf16_1M_qps",
+                "mf_als_recall_at_10", "mf_als_ndcg_at_10"):
         assert key in d, key
     assert d["serve_errors"] == 0
     assert 0 <= d["serve_burst_rejected_429"] <= d["serve_burst_requests"]
-    assert not any(k.startswith(("mf_", "two_tower_")) for k in d)
+    assert not any(k.startswith("two_tower_") for k in d)
 
 
 def test_a_failing_row_raises(small_rows, monkeypatch):
@@ -177,7 +178,88 @@ def test_cli_benchmark(backend, capsys):
         f"queries/sec/chip {kind} top-10 over 3000 items")
 
 
-@pytest.mark.parametrize("command", cli.NOT_PORTED)
-def test_unported_subcommands_still_exit_1(command, capsys):
-    assert cli.main(["--device", "cpu", command]) == 1
-    assert "not ported" in capsys.readouterr().err
+# the JAX subcommands the port lacked before the MF path: those still
+# missing exit 1 as not ported; the MF ones exit 1, with one line, where
+# they refuse their input
+STILL_EXIT_1 = {
+    "autotune": [], "train-two-tower": [], "evaluate-two-tower": [],
+    "train-mf": ["inter.csv", "--mesh", "catalog=2"],
+    "evaluate-mf": ["inter.csv", "--mf", "small.npz"],
+    "recommend-user": ["--mf", "small.npz", "--user", "40"],
+    "embed-catalog": ["--two-tower", "tt.pkl"],
+}
+
+
+@pytest.mark.parametrize("command", list(STILL_EXIT_1))
+def test_unported_subcommands_still_exit_1(command, capsys, tmp_path,
+                                           monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "inter.csv").write_text(
+        "user_id,item_id,count\n" + "".join(f"{u},{u % 7},1\n" for u in range(60)))
+    np.savez(tmp_path / "small.npz", user_factors=np.ones((30, 4), np.float32),
+             item_factors=np.ones((7, 4), np.float32))
+    assert (command in cli.NOT_PORTED) == (not STILL_EXIT_1[command])
+    assert cli.main(["--device", "cpu", command, *STILL_EXIT_1[command]]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("Error: ") and err.count("\n") == 1
+    if command in cli.NOT_PORTED or command == "embed-catalog":
+        assert "not ported" in err
+
+
+def test_quality_row_equals_jax_train_and_eval():
+    """The MF keys of `run_quality_row` equal the JAX package's
+    `train_als` + `evaluate_ranking_arrays` called with the row's own
+    arguments (the JAX row also trains a two-tower model, not ported)."""
+    from spotify_recommender_tpu.core.config import MFConfig
+    from spotify_recommender_tpu.models import mf as jmf
+
+    row = benchmark.run_quality_row(device="cpu")
+    assert sorted(row) == ["mf_als_ndcg_at_10", "mf_als_recall_at_10"]
+    inter, _, _ = jmf.synthetic_interactions(
+        num_users=2000, num_items=1000, latent_dim=8, seed=0)
+    train_i, held_idx, held_mask, seen_idx, seen_mask = (
+        jmf.split_leave_k_out_arrays(inter, k=1, seed=0))
+    users, items = jmf.train_als(train_i, MFConfig(
+        embedding_dim=16, num_iterations=6, reg=0.05, alpha=10.0, seed=0))
+    el = np.nonzero(held_mask.any(axis=1))[0]
+    m = jmf.evaluate_ranking_arrays(
+        users, items, el, held_idx[el], held_mask[el], k=10,
+        seen_idx=seen_idx[el], seen_mask=seen_mask[el])
+    assert row == {"mf_als_recall_at_10": round(m["recall@k"], 4),
+                   "mf_als_ndcg_at_10": round(m["ndcg@k"], 4)}
+    assert row == {"mf_als_recall_at_10": 0.5916, "mf_als_ndcg_at_10": 0.4064}
+
+
+def test_quality_data_digests_cover_the_jax_packages_data():
+    """The digests replay the quality row's draws; their last two steps
+    digest the JAX package's interactions and split for the same seed."""
+    import hashlib
+
+    from spotify_recommender_tpu.models import mf as jmf
+
+    def digest(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()[:12]
+
+    d = benchmark.quality_data_digests()
+    assert list(d) == ["normal", "logits", "weights", "p", "choice", "counts",
+                       "interactions", "split"]
+    inter, _, _ = jmf.synthetic_interactions(2000, 1000, 8, seed=0)
+    split = jmf.split_leave_k_out_arrays(inter, k=1, seed=0)
+    assert d["interactions"] == digest(inter.item_idx, inter.confidence,
+                                       inter.mask)
+    assert d["split"] == digest(split[0].item_idx, split[0].confidence,
+                                split[0].mask, *split[1:])
+    assert benchmark.quality_data_digests(seed=1)["normal"] != d["normal"]
+
+
+def test_quality_row_runs_on_the_card_by_default():
+    import inspect
+
+    assert inspect.signature(benchmark.run_quality_row).parameters[
+        "device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            benchmark.run_quality_row()

@@ -10,6 +10,8 @@ scores within the same bounds.
 """
 
 import json
+import os
+import shutil
 
 import numpy as np
 import pytest
@@ -121,7 +123,7 @@ def test_error_cases_exit_1_in_both(monkeypatch, capsys, dirs, argv):
 
 
 def test_unported_subcommand_exits_1(capsys):
-    assert tcli.main(["--device", "cpu", "train-mf", "x.csv"]) == 1
+    assert tcli.main(["--device", "cpu", "train-two-tower"]) == 1
     assert "not ported" in capsys.readouterr().err
 
 
@@ -214,3 +216,187 @@ def test_retrieve_sharded_artifact_exits_1(monkeypatch, capsys, dirs):
     assert tcli.main(["--device", "cpu", "retrieve", "q.npz", "--catalog",
                       "sharded"]) == 1
     assert "not ported" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------- MF path
+
+
+def _mf_inputs(dirs, n_users=150, n_items=300, seed=0):
+    """An interactions CSV (user_id,item_id,count) over the 300-row test
+    catalog's items, in both working directories; the last item is
+    present, so the item count is the catalog's."""
+    rng = np.random.default_rng(seed)
+    users = np.repeat(np.arange(n_users), 8)
+    items = (users * 7 + rng.integers(0, 25, users.size)) % n_items
+    items[-1] = n_items - 1
+    counts = rng.integers(1, 6, users.size)
+    body = "user_id,item_id,count\n" + "".join(
+        f"{u},{i},{c}\n" for u, i, c in zip(users, items, counts))
+    for d in dirs[1:]:
+        (d / "inter.csv").write_text(body)
+
+
+TRAIN_ALS = ["train-mf", "inter.csv", "-o", "mf.npz", "--dim", "8",
+             "--iterations", "4", "--reg", "0.05", "--alpha", "10"]
+
+
+def _shared_model(monkeypatch, capsys, dirs):
+    """Train in both packages, then give the port the JAX package's model
+    file (the shared artifact), so both CLIs serve the same factors."""
+    _both(monkeypatch, capsys, dirs, TRAIN_ALS)
+    shutil.copy(dirs[1] / "mf.npz", dirs[2] / "mf.npz")
+
+
+@pytest.mark.parametrize("extra", [[], ["--subspace", "4"]])
+def test_train_mf_als_equals_the_jax_cli(monkeypatch, capsys, dirs, extra):
+    _mf_inputs(dirs)
+    (jrc, jout), (trc, tout) = _both(monkeypatch, capsys, dirs, TRAIN_ALS + extra)
+    assert jrc == trc == 0
+    assert tout == jout and tout.lstrip().startswith("recall@10=")
+    _, jdir, tdir = dirs
+    with np.load(jdir / "mf.npz") as j, np.load(tdir / "mf.npz") as t:
+        assert sorted(t.files) == sorted(j.files)
+        for key in ("user_factors", "item_factors"):
+            np.testing.assert_allclose(t[key], j[key], rtol=0, atol=5e-5)
+        for key in ("embedding_dim", "reg", "alpha"):
+            assert t[key] == j[key] and t[key].dtype == j[key].dtype
+
+
+def test_train_mf_sgd(monkeypatch, capsys, dirs):
+    """SGD through the CLI (2000 steps) equals the library call; against
+    the JAX package SGD agrees only for the first steps at small batches
+    (tests/test_torch_mf.py), so the CLI is held to the port's own
+    `train_sgd` + `evaluate_ranking`."""
+    from spotify_recommender_tpu_torch.core.config import MFConfig
+    from spotify_recommender_tpu_torch.models import mf
+
+    _mf_inputs(dirs)
+    tdir = dirs[2]
+    rc, out = _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER,
+                   ["--device", "cpu", "train-mf", "inter.csv", "-o", "s.npz",
+                    "--dim", "8", "--solver", "sgd"])
+    assert rc == 0
+    inter = mf.load_interactions(str(tdir / "inter.csv"))
+    train, held, seen = mf.split_leave_k_out(inter, k=2, seed=0)
+    cfg = MFConfig(embedding_dim=8)
+    u, i = mf.train_sgd(train, cfg, num_steps=2000, device="cpu")
+    m = mf.evaluate_ranking(u, i, held, k=10, train_mask=seen, device="cpu")
+    assert out.strip() == (f"recall@10={m['recall@k']:.4f} "
+                           f"ndcg@10={m['ndcg@k']:.4f} "
+                           f"({m['num_eval_users']} users)")
+    with np.load(tdir / "s.npz") as z:
+        np.testing.assert_array_equal(z["user_factors"], u)
+
+
+def test_train_mf_resumes_from_its_checkpoint_dir(monkeypatch, capsys, dirs):
+    _mf_inputs(dirs)
+    tdir = dirs[2]
+    argv = ["--device", "cpu", *TRAIN_ALS, "--checkpoint-dir", "ck"]
+    rc, first = _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER, argv)
+    assert rc == 0 and sorted(os.listdir(tdir / "ck")) == [
+        "step_1.pt", "step_2.pt", "step_3.pt"]
+    with np.load(tdir / "mf.npz") as z:
+        ref = z["user_factors"]
+    # a second run resumes after the last iteration: same model, no work
+    rc, again = _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER, argv)
+    assert rc == 0 and again == first
+    with np.load(tdir / "mf.npz") as z:
+        np.testing.assert_array_equal(z["user_factors"], ref)
+
+
+@pytest.mark.parametrize("k,holdout", [(10, 2), (5, 1)])
+def test_evaluate_mf_equals_the_jax_cli(monkeypatch, capsys, dirs, k, holdout):
+    _mf_inputs(dirs)
+    _shared_model(monkeypatch, capsys, dirs)
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs, ["evaluate-mf", "inter.csv", "--mf", "mf.npz",
+                                    "-k", str(k), "--holdout", str(holdout)])
+    assert jrc == trc == 0 and tout == jout
+    assert tout.lstrip().startswith(f"recall@{k}=")
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--exclude", "3,4,5", "-n", "6"], ["--catalog", "songs_catalog.npz"],
+])
+def test_recommend_user_equals_the_jax_cli(monkeypatch, capsys, dirs, extra):
+    _both(monkeypatch, capsys, dirs, ["--preprocess", str(dirs[0])])
+    _mf_inputs(dirs)
+    _shared_model(monkeypatch, capsys, dirs)
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs,
+        ["recommend-user", "--mf", "mf.npz", "--user", "3", *extra])
+    assert jrc == trc == 0 and tout == jout
+    assert tout.lstrip().startswith("Top ") and ('"Song ' in tout) == bool(
+        "--catalog" in extra)
+    if "--exclude" in extra:
+        assert not any(f"item {i}:" in tout or f"item {i} " in tout
+                       for i in (3, 4, 5))
+
+
+@pytest.mark.parametrize("exclude", ["3,300", "-301"])
+def test_recommend_user_out_of_range_exclude_exits_1(monkeypatch, capsys, dirs,
+                                                     exclude):
+    """An `--exclude` id outside the model's 300 items: both CLIs exit 1
+    with numpy's one-line IndexError (the port builds the mask on the host,
+    so a card never sees the id)."""
+    _mf_inputs(dirs)
+    _shared_model(monkeypatch, capsys, dirs)
+    argv = ["recommend-user", "--mf", "mf.npz", "--user", "3", "--exclude", exclude]
+    errs = []
+    for workdir, main, pre in ((dirs[1], jcli.main, []),
+                               (dirs[2], tcli.main, ["--device", "cpu"])):
+        monkeypatch.chdir(workdir)
+        capsys.readouterr()
+        assert main([*pre, *argv]) == 1
+        errs.append(capsys.readouterr().err)
+    assert errs[0] == errs[1] and errs[1].count("\n") == 1
+    assert "out of bounds" in errs[1]
+
+
+def test_embed_catalog_mf_then_recommend(monkeypatch, capsys, dirs):
+    """`embed-catalog --mf` writes the item factors as a 8-dim catalog;
+    `recommend --id` serves it through the certified tier, as the JAX CLI
+    does through its own."""
+    _both(monkeypatch, capsys, dirs, ["--preprocess", str(dirs[0])])
+    _mf_inputs(dirs)
+    _shared_model(monkeypatch, capsys, dirs)
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs, ["embed-catalog", "--mf", "mf.npz", "-o", "emb.npz"])
+    assert jrc == trc == 0 and tout == jout
+    assert "300 items x 8 dims" in tout
+    _, jdir, tdir = dirs
+    emb = TCatalog.load(str(tdir / "emb.npz"))
+    with np.load(tdir / "mf.npz") as z:
+        np.testing.assert_array_equal(emb.features, z["item_factors"])
+    np.testing.assert_array_equal(
+        emb.features, JCatalog.load(str(jdir / "emb.npz")).features)
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs, ["--id", "id00003", "-n", "5", "--catalog",
+                                    "emb.npz"])
+    assert jrc == trc == 0
+    _assert_same_stdout(jout, tout)
+
+
+def test_embed_catalog_needs_row_aligned_items(monkeypatch, capsys, dirs):
+    _both(monkeypatch, capsys, dirs, ["--preprocess", str(dirs[0])])
+    _mf_inputs(dirs, n_items=120)
+    _both(monkeypatch, capsys, dirs, TRAIN_ALS)
+    (jrc, _), (trc, _) = _both(monkeypatch, capsys, dirs,
+                               ["embed-catalog", "--mf", "mf.npz"])
+    assert jrc == trc == 1
+
+
+@pytest.mark.parametrize("argv", [
+    [*TRAIN_ALS, "--mesh", "catalog=2"],
+    [*TRAIN_ALS, "--shard-tables"],
+    ["embed-catalog", "--two-tower", "tt.pkl"],
+])
+def test_mf_mesh_and_two_tower_exit_1_with_one_line(monkeypatch, capsys, dirs,
+                                                    argv):
+    _mf_inputs(dirs)
+    monkeypatch.chdir(dirs[2])
+    capsys.readouterr()
+    assert tcli.main(["--device", "cpu", *argv]) == 1
+    err = capsys.readouterr().err
+    assert err.count("\n") == 1 and "not ported" in err
+    assert not (dirs[2] / "mf.npz").exists()

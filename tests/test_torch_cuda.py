@@ -561,3 +561,69 @@ def test_ablation_full_r1_equals_plain(cuda):
     ps, pi = kernel_ablation_r2.run_variant(*args, name="full_r1", k=16,
                                             tc=8192, plain=True)
     assert torch.equal(s, ps) and torch.equal(i, pi) and i.dtype == torch.int32
+
+
+# ---------------------------------------------------------------- MF path
+# (models/mf.py: no kernel of its own; torch.bmm, cuSOLVER's batched
+# Cholesky and the fp32 matrix product, held to the CPU port)
+
+
+def _mf_half_inputs(seed, n=3000, m=800, md=24, d=32):
+    rng = np.random.default_rng(seed)
+    other = (rng.standard_normal((m, d)) / np.sqrt(d)).astype(np.float32)
+    idx = rng.integers(0, m, (n, md)).astype(np.int32)
+    conf = (1 + rng.poisson(2.0, (n, md))).astype(np.float32)
+    mask = rng.random((n, md)) < 0.7
+    mask[:4] = False
+    return [torch.from_numpy(a) for a in (other, idx, conf, mask)]
+
+
+@pytest.mark.parametrize("solve_block", [0, 1024])
+def test_mf_als_half_step_equals_cpu(cuda, solve_block):
+    from spotify_recommender_tpu_torch.models import mf
+
+    args = _mf_half_inputs(solve_block)
+    cpu = mf._als_solve(*args, 0.05, 10.0, solve_block=solve_block)
+    card = mf._als_solve(*[a.to(cuda) for a in args], 0.05, 10.0,
+                         solve_block=solve_block)
+    assert (card.cpu() - cpu).abs().max().item() <= 1e-4
+    assert not card[:4].any()
+
+
+def test_mf_mips_topk_chunked_equals_cpu(cuda):
+    rng = np.random.default_rng(0)
+    items = (rng.standard_normal((20000, 64)) / 8).astype(np.float32)
+    q = (rng.standard_normal((300, 64)) / 8).astype(np.float32)
+    seen = rng.integers(0, 20000, (300, 18)).astype(np.int32)
+    sm = rng.random((300, 18)) < 0.9
+    args = [torch.from_numpy(a) for a in (q, items, seen, sm)]
+    cs, ci = similarity.mips_topk_chunked(*args, k=10, chunk=4096)
+    gs, gi = similarity.mips_topk_chunked(*[a.to(cuda) for a in args], k=10,
+                                          chunk=4096)
+    assert torch.equal(gi.cpu(), ci)
+    assert (gs.cpu() - cs).abs().max().item() <= 1e-6
+
+
+def test_mf_sgd_on_the_card_near_cpu(cuda):
+    """The gathers' backward adds with atomics on the card, so the card
+    equals the CPU only within a tolerance (1e-3 after 20 steps)."""
+    from spotify_recommender_tpu_torch.core.config import MFConfig
+    from spotify_recommender_tpu_torch.models import mf
+
+    inter, _, _ = mf.synthetic_interactions(2000, 1000, 8, seed=0)
+    cfg = MFConfig(embedding_dim=16, reg=0.05, alpha=10.0, learning_rate=0.01)
+    cu, ci = mf.train_sgd(inter, cfg, num_steps=20, device="cpu")
+    gu, gi = mf.train_sgd(inter, cfg, num_steps=20, device=cuda)
+    assert np.isfinite(gu).all() and np.isfinite(gi).all()
+    assert np.abs(gu - cu).max() <= 1e-3 and np.abs(gi - ci).max() <= 1e-3
+
+
+def test_mf_failed_cholesky_raises_on_the_card(cuda):
+    """lambda = 0, an empty row and a zero column: singular normal
+    matrices; cholesky_ex's info makes the half-step raise."""
+    from spotify_recommender_tpu_torch.models import mf
+
+    other, idx, conf, mask = _mf_half_inputs(1, n=64, m=40, md=6, d=8)
+    other[:, 3] = 0.0
+    with pytest.raises(torch.linalg.LinAlgError, match="Cholesky"):
+        mf._als_solve(*[a.to(cuda) for a in (other, idx, conf, mask)], 0.0, 10.0)
