@@ -3,7 +3,7 @@
 The port of spotify_recommender_tpu/benchmark.py, with its metric string,
 its `details` keys and its rows: the headline (1M items x 12 features,
 B = 1024 catalog-row queries with self-exclusion, k = 10), 10M items at
-B = 1024 and B = 1, the MF quality row, serving through the coalescer,
+B = 1024 and B = 1, the quality row (MF and two-tower), serving through the coalescer,
 the host-streaming tier, 64-dimensional features and the approx tier.  The reference's own
 headline is ~3.5-5 ms per single query over a 100K-item catalog on an RTX
 3060 (reference ARCHITECTURE.md:242-247), ~250 queries/sec: the
@@ -27,9 +27,10 @@ Differences from the JAX harness (ROADMAP.md 3b and 3c):
   call's fallbacks, B = 1 calls included, by warmup + iters + 1);
 - no autotune cache is read, and a failing row raises: only the time
   budget skips a row (recorded in `skipped_rows`);
-- the quality row has the MF half only (`mf_als_recall_at_10`,
-  `mf_als_ndcg_at_10`, on the card); the two-tower model is not ported,
-  so the `two_tower_*` keys are absent.
+- the quality row's two-tower model starts from the port's own
+  initialization (flax's distributions, not its `PRNGKey` draws), so its
+  `two_tower_*` keys land within the spread of JAX's init seeds, not on
+  the JAX value (PERF.md §2).
 """
 
 from __future__ import annotations
@@ -400,12 +401,16 @@ def run_streaming_row(
 def run_quality_row(seed: int = 0,
                     device: Union[str, torch.device] = "cuda") -> dict:
     """Training-quality metrics (BASELINE 'recall@10 (MF path)'): fixed-seed
-    ALS recall@10 / NDCG@10 on low-rank synthetic implicit feedback, on
+    ALS recall@10 / NDCG@10 on low-rank synthetic implicit feedback, plus a
+    two-tower co-listen hit rate through the same MIPS evaluation, on
     `device`.  Small fixed workload: the row is a regression tripwire (a
     training or eval regression shows as a recall drop), not a throughput
-    claim.  The JAX row's two-tower half is not ported."""
-    from spotify_recommender_tpu_torch.core.config import MFConfig
-    from spotify_recommender_tpu_torch.models import mf
+    claim."""
+    from spotify_recommender_tpu_torch.core.config import (
+        MFConfig,
+        TwoTowerConfig,
+    )
+    from spotify_recommender_tpu_torch.models import mf, two_tower
 
     inter, _, _ = mf.synthetic_interactions(
         num_users=2000, num_items=1000, latent_dim=8, seed=seed
@@ -425,8 +430,34 @@ def run_quality_row(seed: int = 0,
         k=10, seen_idx=seen_idx[eligible], seen_mask=seen_mask[eligible],
         device=device,
     )
-    return {"mf_als_recall_at_10": round(m["recall@k"], 4),
-            "mf_als_ndcg_at_10": round(m["ndcg@k"], 4)}
+    out = {"mf_als_recall_at_10": round(m["recall@k"], 4),
+           "mf_als_ndcg_at_10": round(m["ndcg@k"], 4)}
+
+    # two-tower on the same co-listen signal: item features are a noisy
+    # low-dim projection of the ALS item factors, so the towers have
+    # something to learn from (the JAX row's tuned tripwire: 2000 steps,
+    # T = 1.0, raw-magnitude item tower; recall@10 ~0.145 saturates the
+    # 12-d features' information)
+    rng = np.random.default_rng(seed)
+    feats = (items @ rng.standard_normal((items.shape[1], 12)) / 4.0
+             ).astype(np.float32) + 0.05 * rng.standard_normal(
+        (items.shape[0], 12)
+    ).astype(np.float32)
+    cfg = TwoTowerConfig(
+        embedding_dim=16, hidden_dims=(32,), batch_size=256,
+        num_steps=2000, learning_rate=3e-3, temperature=1.0,
+        normalize_items=False, seed=seed,
+    )
+    res = two_tower.train(
+        feats, np.zeros(len(feats), np.int32), cfg,
+        pair_fn=two_tower.colisten_pair_fn(train_i, feats, rng),
+        device=device,
+    )
+    tm = two_tower.evaluate_colisten(res.params, cfg, feats, inter, k=10,
+                                     seed=seed, device=device)
+    out["two_tower_recall_at_10"] = round(tm["recall@k"], 4)
+    out["two_tower_ndcg_at_10"] = round(tm["ndcg@k"], 4)
+    return out
 
 
 def quality_data_digests(seed: int = 0) -> Dict[str, str]:
@@ -475,7 +506,7 @@ def run_benchmark_suite(
     device: Union[str, torch.device] = "cuda",
 ) -> BenchResult:
     """The headline 1M exact row, then the auxiliary rows in the details:
-    10M exact (B = 1024 and B = 1), the MF quality row, serving
+    10M exact (B = 1024 and B = 1), the quality row, serving
     (p50/p95/p99, req/s, 429 backpressure), host streaming, 64-dim
     features and the approx tier.
 

@@ -11,16 +11,18 @@ the JAX package's two calling styles:
   ``retrieve`` (batched query vectors -> top-k; ``--streaming`` streams a
   memory-mapped catalog directory through the device in windows),
   ``serve`` (the HTTP service, serve/server.py), ``benchmark`` (one
-  benchmark row as a JSON line, benchmark.py), and the matrix-factorization
+  benchmark row as a JSON line, benchmark.py), the matrix-factorization
   path (models/mf.py): ``train-mf`` (ALS, iALS++ ``--subspace``, SGD;
   ``--checkpoint-dir`` resumes), ``evaluate-mf``, ``recommend-user`` and
   ``embed-catalog --mf`` (the item factors as a catalog that ``recommend``,
-  ``retrieve`` and ``serve`` take unchanged).
+  ``retrieve`` and ``serve`` take unchanged), and the two-tower model
+  (models/two_tower.py): ``train-two-tower``, ``evaluate-two-tower`` and
+  ``embed-catalog --two-tower`` (the item tower's embeddings as a
+  catalog).
 
 A global ``--device`` flag (default ``cuda``) names the device retrieval
 and training run on; ``--device cuda`` without a card raises.  A ``--mesh``
-exits 1, as do the JAX package's subcommands that are not ported yet
-(``autotune`` and the two-tower ones, ``embed-catalog --two-tower`` too).
+exits 1, as does the JAX package's ``autotune``, which is not ported yet.
 
 The default catalog artifact is ``songs_catalog.npz``, the same file the
 JAX package writes and reads.
@@ -47,7 +49,7 @@ BANNER = """\
 """
 
 # subcommands of the JAX package that this package does not have yet
-NOT_PORTED = ("autotune", "train-two-tower", "evaluate-two-tower")
+NOT_PORTED = ("autotune",)
 
 
 def cmd_preprocess(csv_path: str, output: str, fmt: str = "npz") -> int:
@@ -209,6 +211,27 @@ def cmd_train_mf(args, device: str) -> int:
     )
 
 
+def cmd_train_two_tower(args, device: str) -> int:
+    from spotify_recommender_tpu_torch.core.config import TwoTowerConfig
+    from spotify_recommender_tpu_torch.models import two_tower
+
+    if _mesh_not_ported(args):
+        return 1
+    cfg = TwoTowerConfig(
+        embedding_dim=args.dim,
+        num_steps=args.steps,
+        batch_size=args.batch_size,
+        learning_rate=args.lr,
+        seed=args.seed,
+    )
+    return two_tower.train_from_cli(
+        args.catalog, cfg, args.output,
+        checkpoint_dir=args.checkpoint_dir,
+        interactions_path=args.interactions,
+        device=device,
+    )
+
+
 def cmd_evaluate_mf(args, device: str) -> int:
     from spotify_recommender_tpu_torch.models import mf
 
@@ -269,29 +292,35 @@ def cmd_recommend_user(args, device: str) -> int:
     return 0
 
 
-def cmd_embed_catalog(args) -> int:
-    """The MF item factors as the catalog's features (host work only)."""
+def cmd_embed_catalog(args, device: str) -> int:
+    """The two-tower item embeddings or the MF item factors as the
+    catalog's features."""
     import dataclasses
 
     import numpy as np
 
     from spotify_recommender_tpu_torch.data.catalog import load_catalog
-    from spotify_recommender_tpu_torch.models import mf
 
-    if args.two_tower:
-        print("Error: 'embed-catalog --two-tower' is not ported to the "
-              "PyTorch package yet (see ROADMAP.md)", file=sys.stderr)
-        return 1
     cat = load_catalog(args.catalog)
-    _, items = mf.load_model(args.mf)
-    if items.shape[0] != len(cat):
-        print(
-            f"Error: MF model has {items.shape[0]} items but catalog has "
-            f"{len(cat)} — they must be row-aligned",
-            file=sys.stderr,
-        )
-        return 1
-    emb = items.astype(np.float32)
+    if args.two_tower:
+        from spotify_recommender_tpu_torch.models import two_tower
+
+        params, cfg = two_tower.load_model(args.two_tower)
+        emb = two_tower.embed_catalog(params, cat.features, cfg, device=device)
+        source = f"two-tower {args.two_tower}"
+    else:
+        from spotify_recommender_tpu_torch.models import mf
+
+        _, items = mf.load_model(args.mf)
+        if items.shape[0] != len(cat):
+            print(
+                f"Error: MF model has {items.shape[0]} items but catalog has "
+                f"{len(cat)} — they must be row-aligned",
+                file=sys.stderr,
+            )
+            return 1
+        emb = items.astype(np.float32)
+        source = f"MF {args.mf}"
     out = dataclasses.replace(
         cat,
         features=emb,
@@ -300,9 +329,33 @@ def cmd_embed_catalog(args) -> int:
         max_vals=np.ones(emb.shape[1] - 1, np.float32),
     )
     out.save(args.output)
-    print(f"embedded catalog (MF {args.mf}): {len(out)} items x "
-          f"{emb.shape[1]} dims")
+    print(f"embedded catalog ({source}): {len(out)} items x {emb.shape[1]} dims")
     print(f"saved to: {args.output}")
+    return 0
+
+
+def cmd_evaluate_two_tower(args, device: str) -> int:
+    from spotify_recommender_tpu_torch.data.catalog import load_catalog
+    from spotify_recommender_tpu_torch.models import mf, two_tower
+
+    cat = load_catalog(args.catalog)
+    params, cfg = two_tower.load_model(args.two_tower)
+    inter = mf.load_interactions(args.interactions)
+    if inter.num_items > len(cat):
+        print(
+            f"Error: interactions reference item {inter.num_items - 1} but "
+            f"the catalog has only {len(cat)} rows",
+            file=sys.stderr,
+        )
+        return 1
+    m = two_tower.evaluate_colisten(
+        params, cfg, cat.features, inter,
+        k=args.k, holdout=args.holdout, seed=args.seed, device=device,
+    )
+    print(
+        f"recall@{args.k}={m['recall@k']:.4f} ndcg@{args.k}={m['ndcg@k']:.4f} "
+        f"({m['num_eval_users']} users)"
+    )
     return 0
 
 
@@ -404,6 +457,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="iALS++ block size (0 = full ALS solve; e.g. 16 "
                          "at --dim 64 for ~4x cheaper sweeps)")
 
+    st = sub.add_parser("train-two-tower", help="two-tower retrieval model")
+    st.add_argument("--catalog", default=DEFAULT_CATALOG)
+    st.add_argument("-o", "--output", default="two_tower_model")
+    st.add_argument("--dim", type=int, default=64)
+    st.add_argument("--steps", type=int, default=1000)
+    st.add_argument("--batch-size", type=int, default=1024)
+    st.add_argument("--lr", type=float, default=1e-3)
+    st.add_argument("--seed", type=int, default=0)
+    st.add_argument("--mesh", default=None,
+                    help="device mesh of the JAX package (not ported: exits 1)")
+    st.add_argument("--checkpoint-dir", default=None,
+                    help="checkpoint dir (resume from latest)")
+    st.add_argument("--interactions", default=None,
+                    help="user_id,item_id,count CSV/npz: train on co-listen "
+                         "pairs instead of same-genre self-supervision")
+
     sev = sub.add_parser(
         "evaluate-mf", help="recall@k / NDCG@k of an MF model on held-out data"
     )
@@ -437,9 +506,22 @@ def build_parser() -> argparse.ArgumentParser:
     )
     se.add_argument("--catalog", default=DEFAULT_CATALOG)
     g2 = se.add_mutually_exclusive_group(required=True)
-    g2.add_argument("--two-tower", help="two-tower model (not ported: exits 1)")
+    g2.add_argument("--two-tower",
+                    help="two-tower model file (npz of flax-msgpack params)")
     g2.add_argument("--mf", help="MF model .npz (item factors)")
     se.add_argument("-o", "--output", default="embedded_catalog.npz")
+
+    sv2 = sub.add_parser(
+        "evaluate-two-tower",
+        help="recall@k / NDCG@k of a two-tower model on held-out "
+             "co-listen pairs",
+    )
+    sv2.add_argument("interactions", help="CSV/npz of (user_id,item_id,count)")
+    sv2.add_argument("--two-tower", required=True, help="two-tower model file")
+    sv2.add_argument("--catalog", default=DEFAULT_CATALOG)
+    sv2.add_argument("-k", type=int, default=10)
+    sv2.add_argument("--holdout", type=int, default=1)
+    sv2.add_argument("--seed", type=int, default=0)
     return p
 
 
@@ -528,7 +610,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     if args.command == "recommend-user":
         return cmd_recommend_user(args, device)
     if args.command == "embed-catalog":
-        return cmd_embed_catalog(args)
+        return cmd_embed_catalog(args, device)
+    if args.command == "train-two-tower":
+        return cmd_train_two_tower(args, device)
+    if args.command == "evaluate-two-tower":
+        return cmd_evaluate_two_tower(args, device)
     parser.print_help()
     return 1
 

@@ -14,6 +14,7 @@ drives both packages.  TPU tile knobs (`query_tile`, `catalog_tile`,
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 # The 12-feature contract of the reference data model (reference Song.h:12-19):
 # 11 numeric audio features + ordinally-encoded genre as feature[11]
@@ -102,3 +103,24 @@ class MFConfig:
     batch_size: int = 8192
     seed: int = 0
 
+
+
+@dataclasses.dataclass(frozen=True)
+class TwoTowerConfig:
+    """Two-tower retrieval model with in-batch softmax negatives."""
+
+    embedding_dim: int = 64
+    hidden_dims: Sequence[int] = (256, 128)
+    temperature: float = 0.05
+    learning_rate: float = 1e-3
+    batch_size: int = 1024
+    num_steps: int = 1000
+    seed: int = 0
+    # "bfloat16" runs the tower matmuls, bias adds and activations in bf16
+    # while the parameters, the L2-normalize epilogue, the loss and the
+    # optimizer state stay fp32; "float32" = full precision
+    compute_dtype: str = "float32"
+    # False: the ITEM tower skips L2 normalization so embedding magnitude
+    # can encode popularity (the query side stays unit-norm); True (the
+    # default) keeps unit-norm items for cosine serving
+    normalize_items: bool = True

@@ -15,6 +15,12 @@
 //     kGuardClipMask qn*cn > eps ? clamp(dot, -1, 1) : 0, then -inf where
 //                    col >= valid or col == excl  (v2, proto_scan, scan3)
 //   bin(col)    = col mod W
+//   columns >= ncols (the catalog's rows; the layout's pad columns lie
+//   above) never enter a bin: the scan kernel walks only the whole W-column
+//   groups below ncols, and the merge scores the up to W-1 columns of the
+//   group that straddles ncols (SplitPlanes) and inserts them after every
+//   slice, the single walk's last inserts, so no scan step carries a
+//   compare
 //   each bin keeps its top-D (value, column) with strict `>`, so the lowest
 //   column wins ties, plus the largest value evicted past D (the (D+1)-th
 //   best: the coverage bound);
@@ -95,6 +101,7 @@
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 
 namespace bin_scan {
 
@@ -335,6 +342,20 @@ struct Args {
   void* ov;
   void* oi;
   void* ob;
+  int64_t ncols = INT64_MAX;  // columns >= ncols never enter a bin
+};
+
+// The columns [col0, col0 + n) of the group that straddles ncols (n < W,
+// col0 a multiple of W), which the merge scores and inserts: SplitPlanes
+// queries (b, q_stride) and catalog planes, as the scan reads them.
+struct Tail {
+  const __nv_bfloat16* q2;
+  int64_t q_stride;
+  int f;
+  const __nv_bfloat16* ft;
+  int64_t ft_stride;
+  int64_t col0;
+  int n;
 };
 
 // Scores the U columns cc, cc+W, ... of the staged tile (global columns
@@ -471,15 +492,15 @@ __global__ void __launch_bounds__(W)
 }
 
 // Block x: query x.  Folds the `slices` per-slice structures of each bin in
-// ascending slice order, then writes the compact output (topc > 0: ov, oi
-// (b, topc), ob (b,)) or the merged full structures (ov, oi (b, D*W), ob
-// (b, W)).
+// ascending slice order, then the `tail` columns, then writes the compact
+// output (topc > 0: ov, oi (b, topc), ob (b,)) or the merged full
+// structures (ov, oi (b, D*W), ob (b, W)).
 template <int W, int D>
 __global__ void __launch_bounds__(W * merge_groups(W))
     merge_kernel(const float* __restrict__ wv, const int32_t* __restrict__ wi,
                  const float* __restrict__ wb, int64_t slices, int64_t b,
-                 int topc, float* __restrict__ ov, int32_t* __restrict__ oi,
-                 float* __restrict__ ob) {
+                 Tail tail, int topc, float* __restrict__ ov,
+                 int32_t* __restrict__ oi, float* __restrict__ ob) {
   constexpr int R = merge_groups(W);
   constexpr int S = D * W;
   // each group's partial structure: pv[R][S], pi[R][S], pb[R][W]
@@ -530,6 +551,25 @@ __global__ void __launch_bounds__(W * merge_groups(W))
         bnd = fmaxf(bnd, pb[g * W + t]);
       }
     }
+  }
+  if (r == 0 && t < tail.n) {
+    // column col0 + t lies in bin t; its dot sums the products in the
+    // scan's order (SplitPlanes::row), so it is the scan's value
+    const __nv_bfloat16* q = tail.q2 + qg * tail.q_stride;
+    const int64_t col = tail.col0 + t;
+    float s = 0.0f;
+    for (int j = 0; j < tail.f; ++j) {
+      const float qh = __bfloat162float(q[j]);
+      const float ql = __bfloat162float(q[tail.f + j]);
+      const float h = __bfloat162float(tail.ft[j * tail.ft_stride + col]);
+      const float l =
+          __bfloat162float(tail.ft[(tail.f + j) * tail.ft_stride + col]);
+      s = fmaf(qh, h, s);
+      s = fmaf(ql, l, s);
+      s = fmaf(ql, h, s);
+      s = fmaf(qh, l, s);
+    }
+    bin_insert<D>(v, ix, bnd, s, static_cast<int>(col));
   }
   if (topc == 0) {
     if (r == 0) {
@@ -623,12 +663,21 @@ int launch(const Args& a, cudaStream_t stream) {
       static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const int64_t slice = a.slice > 0 ? a.slice : (a.np > 0 ? a.np : 1);
-  const int64_t slices = slice_count(a.np, slice);
+  // the scan walks the whole W-column groups below ncols; the merge scores
+  // the rest of the live columns (SplitPlanes only)
+  const int64_t live = a.ncols < a.np ? a.ncols : a.np;
+  const int64_t np_scan = live < a.np ? live / W * W : a.np;
+  if (np_scan < a.np && !std::is_same<C, SplitPlanes>::value)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tail tail{static_cast<const __nv_bfloat16*>(a.q2), C::q_stride(a.f),
+                  a.f, static_cast<const __nv_bfloat16*>(a.ft), a.ft_stride,
+                  np_scan, static_cast<int>(live - np_scan)};
+  const int64_t slices = slice_count(np_scan, slice);
   const dim3 grid(static_cast<unsigned>((a.b + TQ - 1) / TQ),
                   static_cast<unsigned>(slices));
   scan<<<grid, W, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(a.q2), a.b, a.f,
-      static_cast<const __nv_bfloat16*>(a.ft), a.ft_stride, a.np, tc, slice,
+      static_cast<const __nv_bfloat16*>(a.ft), a.ft_stride, np_scan, tc, slice,
       a.epi, static_cast<float*>(a.wv), static_cast<int32_t*>(a.wi),
       static_cast<float*>(a.wb));
   e = cudaGetLastError();
@@ -637,7 +686,7 @@ int launch(const Args& a, cudaStream_t stream) {
   const size_t msmem = sizeof(float) * R * (2 * D * W + W);
   merge_kernel<W, D><<<static_cast<unsigned>(a.b), W * R, msmem, stream>>>(
       static_cast<const float*>(a.wv), static_cast<const int32_t*>(a.wi),
-      static_cast<const float*>(a.wb), slices, a.b, a.topc,
+      static_cast<const float*>(a.wb), slices, a.b, tail, a.topc,
       static_cast<float*>(a.ov), static_cast<int32_t*>(a.oi),
       static_cast<float*>(a.ob));
   return static_cast<int>(cudaGetLastError());
@@ -648,6 +697,7 @@ int launch(const Args& a, cudaStream_t stream) {
 inline bool args_ok(const Args& a, int w, int d) {
   return w >= 128 && w <= kMaxBins && w % 128 == 0 && a.np % w == 0 &&
          a.f >= 1 && a.topc >= 0 && a.topc <= d * w && a.np < INT_MAX &&
+         a.ncols >= 0 && (a.merge || a.ncols >= a.np) &&
          a.slice >= 0 && a.slice % w == 0 &&
          slice_count(a.np, a.slice > 0 ? a.slice : (a.np > 0 ? a.np : 1)) <=
              (a.merge ? kMaxSlices : 1) &&

@@ -30,9 +30,7 @@ ROADMAP.md queue 1 item 6).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -41,6 +39,7 @@ import torch
 from spotify_recommender_tpu_torch.core.config import MFConfig
 from spotify_recommender_tpu_torch.core.device import resolve_device
 from spotify_recommender_tpu_torch.core.logging import PhaseTimer, get_logger
+from spotify_recommender_tpu_torch.core.timing import Spans, span
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.topk import topk_stable
 
@@ -145,45 +144,6 @@ def synthetic_interactions(
 # --------------------------------------------------------------------------
 
 
-class _Spans:
-    """Milliseconds of named spans of a training loop, summed per name:
-    CUDA events on a card (read, with one synchronize, by `read`), the host
-    clock on the CPU.  `train_als(stats=...)` records its halves and the
-    Cholesky factor + solve inside them."""
-
-    def __init__(self, device: torch.device) -> None:
-        self.cuda = device.type == "cuda"
-        self._marks: list = []
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            yield
-            end.record()
-        else:
-            start = time.perf_counter()
-            yield
-            end = time.perf_counter()
-        self._marks.append((name, start, end))
-
-    def read(self) -> Dict[str, float]:
-        if self.cuda:
-            torch.cuda.synchronize()
-        out: Dict[str, float] = {}
-        for name, start, end in self._marks:
-            ms = start.elapsed_time(end) if self.cuda else (end - start) * 1e3
-            out[name] = out.get(name, 0.0) + ms
-        self._marks = []
-        return out
-
-
-def _span(spans: Optional[_Spans], name: str):
-    return contextlib.nullcontext() if spans is None else spans(name)
-
-
 def _als_block_rows(n: int, md: int, d: int) -> int:
     """Row-block size keeping the half-step's live tensors ~<=1 GB: the
     batched normal matrices are (rows, D, D) and the gathered neighbor
@@ -229,7 +189,7 @@ def _als_solve(
     reg: float,
     alpha: float,
     solve_block: int = 0,
-    spans: Optional[_Spans] = None,
+    spans: Optional[Spans] = None,
 ) -> torch.Tensor:
     """One ALS half-step: re-solve every row given the fixed `other` table.
 
@@ -250,7 +210,7 @@ def _als_solve(
         # A_r = G + λI + Σ_j w_rj y_rj y_rjᵀ  (one batched product)
         a = gram[None] + torch.bmm((y * w[..., None]).transpose(1, 2), y) + eye[None]
         b = torch.bmm(cpref[:, None, :], y)[:, 0]         # (r, D)
-        with _span(spans, "chol"):
+        with span(spans, "chol"):
             out[sl], nfail = _cholesky_solve(a, b)
         failed += nfail
     _raise_if_failed(failed, "ALS half-step")
@@ -267,7 +227,7 @@ def _als_pp_solve(
     alpha: float,
     subspace: int,
     solve_block: int = 0,
-    spans: Optional[_Spans] = None,
+    spans: Optional[Spans] = None,
 ) -> torch.Tensor:
     """iALS++ half-step: subspace block-coordinate descent (Rendle et al.,
     "iALS++: Speeding up Matrix Factorization with Subspace Optimization",
@@ -303,7 +263,7 @@ def _als_pp_solve(
             ax_s = (x @ gram[:, s:s + k]
                     + torch.bmm((w * pred)[:, None, :], ys)[:, 0]
                     + reg * x[:, s:s + k])
-            with _span(spans, "chol"):
+            with span(spans, "chol"):
                 delta, nfail = _cholesky_solve(a_ss, b_s - ax_s)  # (r, k)
             failed += nfail
             # out of place: the next block's (A x)_S reads the new x
@@ -393,13 +353,13 @@ def train_als(
             start_iter = latest + 1
             log.info("resumed ALS from iteration %d", start_iter)
 
-    spans = _Spans(dev) if stats is not None else None
+    spans = Spans(dev) if stats is not None else None
     timer = PhaseTimer()
     for it in range(start_iter, config.num_iterations):
         with timer.phase(f"iter{it}"):
-            with _span(spans, "user"):
+            with span(spans, "user"):
                 users = half(users, items, u_idx, u_conf, u_mask, spans)
-            with _span(spans, "item"):
+            with span(spans, "item"):
                 items = half(items, users, i_idx, i_conf, i_mask, spans)
             if spans is not None:
                 ms = spans.read()

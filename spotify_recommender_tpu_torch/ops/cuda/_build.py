@@ -83,10 +83,10 @@ SERVING = Library("serving", (
     "srt_fused_blocks_per_sm": (_I64, _I64, _I64, _I64, _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
-    # q2, b, f, ft, ft_stride, np, w, depth, topc, slice, wv, wi, wb, ov,
-    # oi, ob, stream
-    "srt_scan_v3": (_P, _I64, _I32, _P, _I64, _I64, _I32, _I32, _I32, _I64,
-                    _P, _P, _P, _P, _P, _P, _P),
+    # q2, b, f, ft, ft_stride, np, ncols, w, depth, topc, slice, wv, wi, wb,
+    # ov, oi, ob, stream
+    "srt_scan_v3": (_P, _I64, _I32, _P, _I64, _I64, _I64, _I32, _I32, _I32,
+                    _I64, _P, _P, _P, _P, _P, _P, _P),
     # q2, qn, b, f, ft, ft_stride, cn, np, excl, valid, eps, w, topc, slice,
     # wv, wi, wb, ov, oi, ob, stream
     "srt_scan_v2": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _P, _I64, _F32,

@@ -1,8 +1,9 @@
 """Kernel 1 of the certified path: the epilogue-free v3 bin scan.
 
-`scan_v3(q2, ft, w=, depth=, topc=)` scans split-plane unit queries
-against the split-plane prenormalized catalog and returns, per query, the
-top-`topc` candidates of its bin structure and the coverage bound:
+`scan_v3(q2, ft, w=, depth=, topc=, ncols=)` scans split-plane unit
+queries against the split-plane prenormalized catalog and returns, per
+query, the top-`topc` candidates of its bin structure and the coverage
+bound:
 
     q2   (B, 4F) bf16   [qh, ql, ql, qh]
     ft   (P*F, Np) bf16 catalog planes [hi; lo] (P = 2) or
@@ -10,7 +11,10 @@ top-`topc` candidates of its bin structure and the coverage bound:
     out  (B, topc) f32 approx scores, (B, topc) int32 columns,
          (B, 1) f32 bound
 
-Bin of column c: c mod w.  Each bin keeps its top-`depth` (value, column)
+Only the first `ncols` columns (default all Np; the catalog's real rows)
+enter a bin: the layout's pad columns score 0 on their zero planes and
+would otherwise fill the bins of a query whose real scores are all below
+0.  Bin of column c: c mod w.  Each bin keeps its top-`depth` (value, column)
 with strict `>` (lowest column wins ties) and its (depth+1)-th best value;
 the output is the top-`topc` of the depth*w slots (slot = level*w + bin) by
 value descending, slot ascending, with empty slots as (-inf, -1).  This is
@@ -35,7 +39,7 @@ shared with kernel 4 (ops/cuda/scan_v2.py) and the prototype scans
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -204,9 +208,13 @@ def top_slots(
 
 
 def scan_v3_plain(
-    q2: torch.Tensor, ft: torch.Tensor, *, w: int, depth: int, topc: int
+    q2: torch.Tensor, ft: torch.Tensor, *, w: int, depth: int, topc: int,
+    ncols: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    sv, si, bound = bin_structures(split_plane_dots(q2, ft), w, depth)
+    dots = split_plane_dots(q2, ft)
+    if ncols is not None:
+        dots[:, ncols:] = float("-inf")   # never enters a bin
+    sv, si, bound = bin_structures(dots, w, depth)
     return top_slots(sv, si, bound, topc)
 
 
@@ -238,26 +246,31 @@ def check_kernel_layout(q2: torch.Tensor, ft: torch.Tensor, w: int,
 
 
 def scan_v3(
-    q2: torch.Tensor, ft: torch.Tensor, *, w: int, depth: int, topc: int
+    q2: torch.Tensor, ft: torch.Tensor, *, w: int, depth: int, topc: int,
+    ncols: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     f = check_scan_inputs(q2, ft, w, "scan_v3")
     if not 1 <= topc <= depth * w:
         raise ValueError(f"scan_v3: topc={topc} outside 1..depth*w={depth * w}")
+    np_ = ft.shape[1]
+    ncols = np_ if ncols is None else ncols
+    if not 0 <= ncols <= np_:
+        raise ValueError(f"scan_v3: ncols={ncols} outside 0..Np={np_}")
     if q2.device.type == "cpu" and ft.device.type == "cpu":
-        return scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc)
+        return scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc, ncols=ncols)
     check_kernel_layout(q2, ft, w, "scan_v3")
     if not 1 <= depth <= KERNEL_MAX_DEPTH:
         raise ValueError(
             f"the CUDA scan supports depth 1-{KERNEL_MAX_DEPTH}, got {depth}")
-    b, np_ = q2.shape[0], ft.shape[1]
+    b = q2.shape[0]
     slice_, wv, wi, wb = scan_scratch(b, np_, w, depth, q2.device)
     ov = torch.empty((b, topc), dtype=torch.float32, device=q2.device)
     oi = torch.empty((b, topc), dtype=torch.int32, device=q2.device)
     ob = torch.empty((b, 1), dtype=torch.float32, device=q2.device)
     with torch.cuda.device(q2.device):
         err = _build.library().srt_scan_v3(
-            q2.data_ptr(), b, f, ft.data_ptr(), ft.stride(0), np_, w, depth,
-            topc, slice_, wv.data_ptr(), wi.data_ptr(), wb.data_ptr(),
+            q2.data_ptr(), b, f, ft.data_ptr(), ft.stride(0), np_, ncols, w,
+            depth, topc, slice_, wv.data_ptr(), wi.data_ptr(), wb.data_ptr(),
             ov.data_ptr(), oi.data_ptr(), ob.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )

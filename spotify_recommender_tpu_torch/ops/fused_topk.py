@@ -685,7 +685,8 @@ class CertifiedRetriever:
             a_s, cand, cb = scan_v2(q2, qn, dl.ft, dl.nrm_row, excl,
                                     self.num_items, w=dl.w, eps=eps, topc=c)
         else:
-            a_s, cand, cb = scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth, topc=c)
+            a_s, cand, cb = scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth, topc=c,
+                                    ncols=self.num_items)
         top_s, top_i, ok = rerank_certify(
             queries, qn, a_s, cand, cb, excl, dl, self.num_items,
             k=k, eps=eps, ceps=self._ceps,
@@ -696,7 +697,7 @@ class CertifiedRetriever:
             # depth; splice back only the rows that are now certified
             eidx = fail[:32]
             a2, c2, b2 = scan_v3(q2[eidx], dl.ft, w=dl.w, depth=self._esc,
-                                 topc=c)
+                                 topc=c, ncols=self.num_items)
             ts2, ti2, ok2 = rerank_certify(
                 queries[eidx], qn[eidx], a2, c2, b2, excl[eidx], dl,
                 self.num_items, k=k, eps=eps, ceps=self._ceps,
@@ -745,24 +746,28 @@ def approx_retrieve(
     eps: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Approximate top-k (`_approx_retrieve`, fused_topk.py:678): the unit
-    queries' split (kernel 2), one v3 bin scan to the top-`c` (kernel 1),
-    then the candidates masked and cut to k; no rerank, no certificate.
+    queries' split (kernel 2), one v3 bin scan of the `nvalid` real columns
+    to the top-`c` (kernel 1), then the candidates masked and cut to k; no
+    rerank, no certificate.
 
     Scores are the split-plane cosines, within BF16X2_EPS of the exact
-    ones, clipped to [-1, 1].  Two departures from the JAX function, each a
-    fault it has (ROADMAP 3d):
+    ones, clipped to [-1, 1].  Three departures from the JAX function, each
+    a fault it has (ROADMAP 3d):
+    - the layout's pad columns never enter a bin (the JAX scan scores them
+      0 on their zero planes, so they crowd out every real row of a query
+      whose cosines are all below 0, and leak as pad indices);
     - a candidate with qn * norm <= eps scores 0, the exact tier's guard
       (the JAX tier stores tiny rows as unit vectors and scores them ~1);
-    - a slot left without a valid candidate (pad columns, which score 0 on
-      the zero pad planes, can crowd every bin of a query anti-aligned with
-      the catalog) is (-inf, -1), never a pad index or the excluded row.
+    - a slot left without a valid candidate (only where fewer than k rows
+      other than the excluded one exist, or the masking after the scan
+      starves k) is (-inf, -1), never the excluded row.
     The top-k is stable over the scan's order (value descending, slot
     ascending), as `lax.top_k` there."""
     qn = similarity.row_norms(queries)
     qh, ql = split_bf16x2(queries / qn.clamp_min(1e-30)[:, None])
     # [qh,ql | ql,qh] against [hi;lo]: qh·hi + ql·lo + ql·hi + qh·lo
     q2 = torch.cat([qh, ql, ql, qh], dim=1)
-    a_s, cand, _ = scan_v3(q2, ft, w=w, depth=depth, topc=c)
+    a_s, cand, _ = scan_v3(q2, ft, w=w, depth=depth, topc=c, ncols=nvalid)
     cand = cand.long()
     bad = (cand < 0) | (cand >= nvalid) | (cand == excl[:, None])
     guard = qn[:, None] * nrm_row[cand.clamp(0, nrm_row.shape[0] - 1)] <= eps
@@ -780,14 +785,11 @@ class ApproxRetriever:
     The device holds only the split planes [hi; lo] of the unit rows and
     the raw norms (the guard's), about 2/3 of the certified tier's bytes.
     Scores err by at most BF16X2_EPS.  A true top-k item is missed when
-    more than `depth` of the top-k share a bin, or when it scores below 0:
-    the layout's pad columns (up to the catalog tile, 48,576 of them at 1M
-    rows) score 0 on their zero planes, so for a query whose cosines are
-    all negative they take every bin's top slots and the answer comes back
-    short, or empty ((-inf, -1) slots), though the catalog has rows.  The
-    scan carries no column mask to keep them out.  The layout is the
-    certified tier's (`build_certified_layout`), and so are W and the
-    depth."""
+    more than `depth` of the top-k share a bin.  The layout's pad columns
+    (up to the catalog tile, 48,576 of them at 1M rows) never enter a bin,
+    so every slot is filled whenever the catalog has k rows besides the
+    excluded one.  The layout is the certified tier's
+    (`build_certified_layout`), and so are W and the depth."""
 
     def __init__(
         self,

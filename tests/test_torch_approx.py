@@ -38,10 +38,10 @@ def quantized(rng, shape):
     return (rng.integers(0, 256, shape) / 256).astype(np.float32)
 
 
-def separated(scores):
-    """Positions whose neighbouring scores (both sides) are > SEP apart; the
-    last position's right neighbour is unknown, so it is left out."""
-    gap = np.diff(scores, axis=1) < -SEP
+def separated(scores, sep=SEP):
+    """Positions whose neighbouring scores (both sides) are > `sep` apart;
+    the last position's right neighbour is unknown, so it is left out."""
+    gap = np.diff(scores, axis=1) < -sep
     edge = np.ones((len(scores), 1), bool)
     sep = np.concatenate([edge, gap], 1) & np.concatenate([gap, edge], 1)
     sep[:, -1] = False
@@ -135,9 +135,11 @@ def test_tiny_norm_rows_score_zero():
 
 
 def test_anti_aligned_query_leaks_no_pad_index():
-    """Every real cosine of an anti-aligned query is < 0, so the pad
-    columns (score 0 on their zero planes) take the scan's candidates; the
-    slots left are (-inf, -1).  (The JAX tier returns the pad indices.)"""
+    """Every real cosine of an anti-aligned query is < 0, and the pad
+    columns (score 0 on their zero planes) never enter the scan's bins:
+    every slot holds a real row, within BF16X2_EPS of its exact score, and
+    the oracle's top-k wherever the oracle's scores are more than
+    2 * BF16X2_EPS apart.  (The JAX tier returns the pad indices.)"""
     rng = np.random.default_rng(54)
     n = 1037                                     # 115 pad columns
     feats = rng.random((n, 12), dtype=np.float32) + 0.01
@@ -145,12 +147,15 @@ def test_anti_aligned_query_leaks_no_pad_index():
     q = -feats[rows]
     s, i = ApproxRetriever(feats, None, None, CPU)(q, 10, rows)
     s, i = s.numpy(), i.numpy()
-    valid = i >= 0
-    assert (i[~valid] == -1).all() and np.isneginf(s[~valid]).all()
-    assert (i < n).all() and not (i == rows[:, None]).any()
-    np.testing.assert_allclose(s[valid], exact_scores(q, feats, i)[valid],
-                               rtol=0, atol=BF16X2_EPS)
-    assert (~valid).any()
+    assert ((i >= 0) & (i < n)).all() and not (i == rows[:, None]).any()
+    assert (s < 0).all()
+    np.testing.assert_allclose(s, exact_scores(q, feats, i), rtol=0,
+                               atol=BF16X2_EPS)
+    rs, ri = similarity.exact_topk(torch.from_numpy(q), torch.from_numpy(feats),
+                                   exclude_rows=torch.from_numpy(rows), k=10)
+    sep = separated(rs.numpy(), 2 * BF16X2_EPS)
+    assert sep.sum() > 40
+    np.testing.assert_array_equal(i[sep], ri.numpy()[sep])
     _, ji = jax_approx(feats, q, 10, rows)
     assert (ji >= n).any()                       # the JAX fault
 
@@ -163,18 +168,18 @@ def _catalog(feats):
 
 
 def test_recommend_by_index_never_reports_the_last_song():
-    """Row 0 against a catalog anti-aligned with it: the approx tier fills
-    no slot, and the -1 rows are dropped (`track_ids[-1]` would be the last
-    song)."""
+    """Row 0 of a 6-row catalog at n = 10: the approx tier fills the 5 slots
+    that the other rows can fill and leaves the rest (-inf, -1), and the -1
+    rows are dropped (`track_ids[-1]` would report the last song again)."""
     rng = np.random.default_rng(55)
-    feats = -(rng.random((1037, 12), dtype=np.float32) + 0.01)
+    feats = -(rng.random((6, 12), dtype=np.float32) + 0.01)
     feats[0] = -feats[0]
     r = Retriever(_catalog(feats), RetrievalConfig(dtype="bfloat16"), CPU)
     assert r.backend == "approx"
-    recs = r.recommend_by_index(0, 10)
-    rows = [x.row for x in recs]
-    assert len(rows) < 10 and 1036 not in rows
-    assert all(0 < x < 1037 for x in rows)
+    _, i = r.retrieve_host(feats[:1], k=10, exclude_rows=np.zeros(1, np.int64))
+    assert (i[0, 5:] == -1).all()
+    rows = [x.row for x in r.recommend_by_index(0, 10)]
+    assert sorted(rows) == [1, 2, 3, 4, 5]
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "bfloat16x2"])
@@ -203,3 +208,63 @@ def test_the_device_holds_only_the_split_planes_and_norms():
     assert set(tensors) == {"ft", "nrm_row"}
     assert ar.ft.dtype == torch.bfloat16 and ar.ft.shape == (24, 3072)
     assert ar.nrm_row.shape == (3072,) and (ar.nrm_row[3000:] == 0).all()
+
+
+def _masked_scan_reference(dots, n, w, depth, topc):
+    """Top-`topc` of each bin's top-`depth` over the first `n` columns, by
+    value descending then slot ascending (slot = level*w + bin), as numpy
+    loops; columns >= n never enter a bin."""
+    vals = np.full((len(dots), topc), -np.inf, np.float32)
+    cols = np.full((len(dots), topc), -1, np.int64)
+    for b, row in enumerate(dots):
+        slots = []
+        for bin_ in range(w):
+            c = np.arange(bin_, n, w)
+            order = c[np.lexsort((c, -row[c]))][:depth]
+            slots += [(-row[col], lv * w + bin_, col)
+                      for lv, col in enumerate(order)]
+        for j, (v, _, col) in enumerate(sorted(slots)[:topc]):
+            vals[b, j], cols[b, j] = -v, col
+    return vals, cols
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_scan_v3_plain_with_ncols_agrees_with_the_unmasked_scan_on_real_columns(
+        sign):
+    """`scan_v3_plain(ncols=N)` keeps the pad columns out of the bins.  On
+    queries aligned with the (positive) catalog every real column beats the
+    pads' 0, so it equals the unmasked scan; anti-aligned, the unmasked
+    scan's top slots are all pads and the masked scan's are real columns,
+    as a reference built from the real columns alone gives them."""
+    from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
+        scan_v3, scan_v3_plain, split_plane_dots)
+    from spotify_recommender_tpu_torch.ops.cuda.split import split_bf16x2
+    from spotify_recommender_tpu_torch.ops.fused_topk import (
+        build_certified_layout, layout_to_device)
+
+    rng = np.random.default_rng(58)
+    n, w, depth, topc = 1037, 128, 2, 32
+    feats = rng.random((n, 12), dtype=np.float32) + 0.01
+    ft = layout_to_device(build_certified_layout(feats, None, RetrievalConfig()),
+                          CPU).ft
+    q = torch.from_numpy(sign * feats[:6])
+    qh, ql = split_bf16x2(q / similarity.row_norms(q)[:, None])
+    q2 = torch.cat([qh, ql, ql, qh], 1)
+    mv, mi, mb = scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc, ncols=n)
+    uv, ui, ub = scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc)
+    rv, ri = _masked_scan_reference(split_plane_dots(q2, ft).numpy(), n, w,
+                                    depth, topc)
+    np.testing.assert_array_equal(mv.numpy(), rv)
+    np.testing.assert_array_equal(mi.numpy(), ri)
+    assert ((mi >= 0) & (mi < n)).all() and torch.isfinite(mb).all()
+    if sign > 0:
+        for m, u in ((mv, uv), (mi, ui), (mb, ub)):
+            assert torch.equal(m, u)
+    else:
+        assert (ui >= n).all() and (uv == 0).all()
+    # the wrapper takes ncols in 0..Np, and on the CPU is the plain version
+    out = scan_v3(q2, ft, w=w, depth=depth, topc=topc, ncols=n)
+    assert all(torch.equal(a, b) for a, b in zip(out, (mv, mi, mb)))
+    for bad in (-1, ft.shape[1] + 1):
+        with pytest.raises(ValueError, match="ncols"):
+            scan_v3(q2, ft, w=w, depth=depth, topc=topc, ncols=bad)

@@ -14,6 +14,8 @@ import torch
 from spotify_recommender_tpu import benchmark as jbench
 from spotify_recommender_tpu.ops.pallas import fused_topk as jfused
 from spotify_recommender_tpu_torch import benchmark, cli
+from spotify_recommender_tpu_torch.core.config import TwoTowerConfig
+from spotify_recommender_tpu_torch.models import two_tower
 from spotify_recommender_tpu_torch.ops import fused_topk
 
 SMALL = dict(num_items=4096, num_queries=16, warmup=1, iters=1)
@@ -97,6 +99,19 @@ def test_verify_holds_answers_to_the_oracle(monkeypatch):
 
 
 @pytest.fixture
+def one_thread():
+    """Torch's CPU ops in one thread, for the tests that run the quality
+    row: its 2000 small training steps enter OpenMP regions whose threads,
+    with other test processes on the cores, wait on each other (six rows
+    at once on an 8-core x86-64 CPU: 790 s each at 8 threads, 4.7 s at
+    one)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture
 def small_rows(monkeypatch):
     """The suite's rows at CPU sizes: each row's own arguments, but few
     items and queries."""
@@ -123,7 +138,7 @@ def test_suite_records_skipped_rows_under_a_zero_budget(small_rows, capsys):
     assert len(head) == 1 and json.loads(head[0])["metric"] == r.metric
 
 
-def test_suite_runs_every_row(small_rows, capsys):
+def test_suite_runs_every_row(small_rows, one_thread, capsys):
     r = benchmark.run_benchmark_suite(time_budget_s=600.0, device="cpu")
     d = r.details
     assert "skipped_rows" not in d
@@ -134,14 +149,14 @@ def test_suite_runs_every_row(small_rows, capsys):
                 "serve_burst_rejected_429", "streaming_qps", "streaming_GBps",
                 "hostlink_GBps", "streaming_link_efficiency",
                 "exact_1M_64dim_qps", "approx_bf16_1M_qps",
-                "mf_als_recall_at_10", "mf_als_ndcg_at_10"):
+                "mf_als_recall_at_10", "mf_als_ndcg_at_10",
+                "two_tower_recall_at_10", "two_tower_ndcg_at_10"):
         assert key in d, key
     assert d["serve_errors"] == 0
     assert 0 <= d["serve_burst_rejected_429"] <= d["serve_burst_requests"]
-    assert not any(k.startswith("two_tower_") for k in d)
 
 
-def test_a_failing_row_raises(small_rows, monkeypatch):
+def test_a_failing_row_raises(small_rows, one_thread, monkeypatch):
     def broken(**kw):
         raise RuntimeError("serve row broke")
 
@@ -178,15 +193,17 @@ def test_cli_benchmark(backend, capsys):
         f"queries/sec/chip {kind} top-10 over 3000 items")
 
 
-# the JAX subcommands the port lacked before the MF path: those still
-# missing exit 1 as not ported; the MF ones exit 1, with one line, where
-# they refuse their input
+# the JAX subcommands the port lacked before the MF path: the one still
+# missing exits 1 as not ported; the MF and two-tower ones exit 1, with one
+# line, where they refuse their input (a mesh: as not ported)
 STILL_EXIT_1 = {
-    "autotune": [], "train-two-tower": [], "evaluate-two-tower": [],
+    "autotune": [], "train-two-tower": ["--mesh", "data=2"],
+    "evaluate-two-tower": ["inter.csv", "--two-tower", "tt.npz",
+                           "--catalog", "cat.npz"],
     "train-mf": ["inter.csv", "--mesh", "catalog=2"],
     "evaluate-mf": ["inter.csv", "--mf", "small.npz"],
     "recommend-user": ["--mf", "small.npz", "--user", "40"],
-    "embed-catalog": ["--two-tower", "tt.pkl"],
+    "embed-catalog": ["--mf", "small.npz", "--catalog", "cat.npz"],
 }
 
 
@@ -198,23 +215,31 @@ def test_unported_subcommands_still_exit_1(command, capsys, tmp_path,
         "user_id,item_id,count\n" + "".join(f"{u},{u % 7},1\n" for u in range(60)))
     np.savez(tmp_path / "small.npz", user_factors=np.ones((30, 4), np.float32),
              item_factors=np.ones((7, 4), np.float32))
+    # a 3-row catalog: the 7 MF items and the interactions' 7 items exceed it
+    benchmark._serve_catalog(np.ones((3, 12), np.float32)).save(
+        str(tmp_path / "cat.npz"))
+    cfg = TwoTowerConfig(embedding_dim=4, hidden_dims=(8,))
+    two_tower.save_model(str(tmp_path / "tt.npz"), two_tower.init_params(
+        cfg, 12, torch.Generator().manual_seed(0)), cfg)
     assert (command in cli.NOT_PORTED) == (not STILL_EXIT_1[command])
     assert cli.main(["--device", "cpu", command, *STILL_EXIT_1[command]]) == 1
     err = capsys.readouterr().err
     assert err.startswith("Error: ") and err.count("\n") == 1
-    if command in cli.NOT_PORTED or command == "embed-catalog":
+    if command in cli.NOT_PORTED or "--mesh" in STILL_EXIT_1[command]:
         assert "not ported" in err
 
 
-def test_quality_row_equals_jax_train_and_eval():
+def test_quality_row_equals_jax_train_and_eval(one_thread):
     """The MF keys of `run_quality_row` equal the JAX package's
     `train_als` + `evaluate_ranking_arrays` called with the row's own
-    arguments (the JAX row also trains a two-tower model, not ported)."""
+    arguments; the row has the JAX row's keys (its two-tower keys are held
+    to the JAX row in tests/test_torch_two_tower.py)."""
     from spotify_recommender_tpu.core.config import MFConfig
     from spotify_recommender_tpu.models import mf as jmf
 
     row = benchmark.run_quality_row(device="cpu")
-    assert sorted(row) == ["mf_als_ndcg_at_10", "mf_als_recall_at_10"]
+    assert sorted(row) == ["mf_als_ndcg_at_10", "mf_als_recall_at_10",
+                           "two_tower_ndcg_at_10", "two_tower_recall_at_10"]
     inter, _, _ = jmf.synthetic_interactions(
         num_users=2000, num_items=1000, latent_dim=8, seed=0)
     train_i, held_idx, held_mask, seen_idx, seen_mask = (
@@ -225,9 +250,10 @@ def test_quality_row_equals_jax_train_and_eval():
     m = jmf.evaluate_ranking_arrays(
         users, items, el, held_idx[el], held_mask[el], k=10,
         seen_idx=seen_idx[el], seen_mask=seen_mask[el])
-    assert row == {"mf_als_recall_at_10": round(m["recall@k"], 4),
-                   "mf_als_ndcg_at_10": round(m["ndcg@k"], 4)}
-    assert row == {"mf_als_recall_at_10": 0.5916, "mf_als_ndcg_at_10": 0.4064}
+    mf_keys = {k: row[k] for k in ("mf_als_recall_at_10", "mf_als_ndcg_at_10")}
+    assert mf_keys == {"mf_als_recall_at_10": round(m["recall@k"], 4),
+                       "mf_als_ndcg_at_10": round(m["ndcg@k"], 4)}
+    assert mf_keys == {"mf_als_recall_at_10": 0.5916, "mf_als_ndcg_at_10": 0.4064}
 
 
 def test_quality_data_digests_cover_the_jax_packages_data():

@@ -123,7 +123,7 @@ def test_error_cases_exit_1_in_both(monkeypatch, capsys, dirs, argv):
 
 
 def test_unported_subcommand_exits_1(capsys):
-    assert tcli.main(["--device", "cpu", "train-two-tower"]) == 1
+    assert tcli.main(["--device", "cpu", "autotune"]) == 1
     assert "not ported" in capsys.readouterr().err
 
 
@@ -389,7 +389,7 @@ def test_embed_catalog_needs_row_aligned_items(monkeypatch, capsys, dirs):
 @pytest.mark.parametrize("argv", [
     [*TRAIN_ALS, "--mesh", "catalog=2"],
     [*TRAIN_ALS, "--shard-tables"],
-    ["embed-catalog", "--two-tower", "tt.pkl"],
+    ["train-two-tower", "--mesh", "data=2"],
 ])
 def test_mf_mesh_and_two_tower_exit_1_with_one_line(monkeypatch, capsys, dirs,
                                                     argv):
@@ -400,3 +400,65 @@ def test_mf_mesh_and_two_tower_exit_1_with_one_line(monkeypatch, capsys, dirs,
     err = capsys.readouterr().err
     assert err.count("\n") == 1 and "not ported" in err
     assert not (dirs[2] / "mf.npz").exists()
+
+
+TRAIN_TT = ["train-two-tower", "-o", "tt.npz", "--dim", "8", "--steps", "30",
+            "--batch-size", "32", "--lr", "0.003"]
+
+
+def test_train_two_tower_then_embed_and_recommend(monkeypatch, capsys, dirs):
+    """The port trains on the catalog's same-genre pairs and writes the
+    shared model file; `embed-catalog --two-tower` in both CLIs gives the
+    same 8-dim catalog from it, which `recommend --id` serves alike."""
+    _both(monkeypatch, capsys, dirs, ["--preprocess", str(dirs[0])])
+    _, jdir, tdir = dirs
+    rc, out = _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER,
+                   ["--device", "cpu", *TRAIN_TT])
+    assert rc == 0 and out.lstrip().startswith("two-tower trained: final loss")
+    shutil.copy(tdir / "tt.npz", jdir / "tt.npz")
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs,
+        ["embed-catalog", "--two-tower", "tt.npz", "-o", "emb.npz"])
+    assert jrc == trc == 0
+    assert tout == jout and "(two-tower tt.npz): 300 items x 8 dims" in tout
+    emb = TCatalog.load(str(tdir / "emb.npz"))
+    np.testing.assert_allclose(
+        emb.features, JCatalog.load(str(jdir / "emb.npz")).features,
+        rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(emb.features, axis=1), 1.0,
+                               atol=1e-6)
+    # both CLIs serve the port's embeddings
+    shutil.copy(tdir / "emb.npz", jdir / "emb.npz")
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs, ["--id", "id00003", "-n", "5", "--catalog",
+                                    "emb.npz"])
+    assert jrc == trc == 0
+    _assert_same_stdout(jout, tout)
+
+
+def test_evaluate_two_tower_equals_the_jax_cli(monkeypatch, capsys, dirs):
+    _both(monkeypatch, capsys, dirs, ["--preprocess", str(dirs[0])])
+    _mf_inputs(dirs)
+    _, jdir, tdir = dirs
+    argv = [*TRAIN_TT, "--interactions", "inter.csv"]
+    assert _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER,
+                ["--device", "cpu", *argv])[0] == 0
+    shutil.copy(tdir / "tt.npz", jdir / "tt.npz")
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs,
+        ["evaluate-two-tower", "inter.csv", "--two-tower", "tt.npz", "-k", "5"])
+    assert jrc == trc == 0
+    assert tout == jout and tout.lstrip().startswith("recall@5=")
+
+
+def test_train_two_tower_resumes_from_its_checkpoint_dir(monkeypatch, capsys,
+                                                         dirs):
+    _both(monkeypatch, capsys, dirs, ["--preprocess", str(dirs[0])])
+    tdir = dirs[2]
+    for steps in ("20", "30"):
+        rc, _ = _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER,
+                     ["--device", "cpu", "train-two-tower", "--dim", "8",
+                      "--steps", steps, "--batch-size", "32",
+                      "--checkpoint-dir", "ck"])
+        assert rc == 0
+    assert sorted(os.listdir(tdir / "ck")) == ["step_19.pt", "step_29.pt"]

@@ -627,3 +627,60 @@ def test_mf_failed_cholesky_raises_on_the_card(cuda):
     other[:, 3] = 0.0
     with pytest.raises(torch.linalg.LinAlgError, match="Cholesky"):
         mf._als_solve(*[a.to(cuda) for a in (other, idx, conf, mask)], 0.0, 10.0)
+
+
+@pytest.mark.parametrize("b,w,depth", [(40, 128, 2), (40, 128, 3), (1, 128, 2),
+                                       (1024, 128, 2), (40, 512, 2)])
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_scan_with_ncols_bitwise_equals_plain(cuda, b, w, depth, sign):
+    """Kernel 1 given the catalog's real column count: the pad columns
+    never enter a bin (anti-aligned queries, sign -1, would otherwise fill
+    every bin with them), bitwise its plain version; a count inside a W
+    group and one that stops short of the last slices too."""
+    feats, lay, _, q2 = _scan_inputs(
+        cuda, 20011, b, seed=b + w + depth,
+        config=RetrievalConfig(scan_bins=w))
+    ft = layout_to_device(lay, cuda).ft
+    if sign < 0:
+        q2 = torch.cat([-q2[:, :24], q2[:, 24:]], 1)   # [-qh, -ql | ...]
+    for ncols in (20011, 20011 - 300, 777, 0):
+        before = scan_v3.launches
+        out = scan_v3(q2, ft, w=w, depth=depth, topc=32, ncols=ncols)
+        torch.cuda.synchronize()
+        assert scan_v3.launches == before + 1
+        plain = scan_v3_plain(q2, ft, w=w, depth=depth, topc=32, ncols=ncols)
+        for o, p in zip(out, plain):
+            assert torch.equal(o, p), ncols
+        assert (out[1] < ncols).all()
+        # every one of the 32 slots holds a real column, if there is one
+        assert bool((out[1] >= 0).all()) == (ncols > 0)
+        assert bool((out[1] == -1).all()) == (ncols == 0)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_two_tower_on_the_card_near_cpu(cuda, compute_dtype):
+    """The towers' embeddings on the card against the CPU from the same
+    weights: fp32 within 1e-5 (TF32 off; cuBLAS sums in another order);
+    bf16 within one bf16 rounding of the row's largest entry (2^-7 of it,
+    plus 1e-5): where the two sums under a hidden unit's bf16 rounding
+    straddle a boundary, the unit moves by one bf16 step and every output
+    of the row moves with it, so a small entry can move by far more than
+    its own rounding."""
+    from spotify_recommender_tpu_torch.core.config import TwoTowerConfig
+    from spotify_recommender_tpu_torch.models import two_tower
+
+    cfg = TwoTowerConfig(compute_dtype=compute_dtype)
+    params = two_tower.init_params(cfg, 12, torch.Generator().manual_seed(0))
+    params = two_tower.params_from_jax(two_tower.params_to_jax(params))
+    x = np.random.default_rng(0).random((4096, 12), dtype=np.float32)
+    for fn in (two_tower.embed_catalog, two_tower.embed_queries):
+        card = fn(params, x, cfg, device=cuda)
+        cpu = fn(params, x, cfg, device="cpu")
+        if compute_dtype == "float32":
+            np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-5)
+        else:
+            scale = np.abs(cpu).max(axis=1, keepdims=True)
+            assert (np.abs(card - cpu) <= 2.0**-7 * scale + 1e-5).all()
+    res = two_tower.train(x, np.arange(4096) % 7, TwoTowerConfig(
+        num_steps=20, compute_dtype=compute_dtype), device=cuda)
+    assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]

@@ -1,6 +1,6 @@
 """The port stands without JAX: no module of it, and not chip_smoke.py,
-imports jax, the JAX package `spotify_recommender_tpu` or the repo's
-`experiments/`."""
+imports jax, flax, optax, msgpack, the JAX package `spotify_recommender_tpu`
+or the repo's `experiments/`."""
 
 import ast
 import pathlib
@@ -15,11 +15,13 @@ from spotify_recommender_tpu_torch.core.device import device_info, resolve_devic
 
 PKG = pathlib.Path(__file__).resolve().parents[1] / "spotify_recommender_tpu_torch"
 SOURCES = [*sorted(PKG.rglob("*.py")), PKG.parent / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "spotify_recommender_tpu", "experiments")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack",
+             "spotify_recommender_tpu", "experiments")
 
 _SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys
-    for name in ("jax", "spotify_recommender_tpu", "experiments"):
+    for name in ("jax", "flax", "optax", "msgpack", "spotify_recommender_tpu",
+                 "experiments"):
         sys.modules[name] = None       # any import of these now raises
     import numpy as np, torch
     import spotify_recommender_tpu_torch as pkg
@@ -33,6 +35,19 @@ _SCRIPT = textwrap.dedent("""
     rs, ri = exact_topk(torch.from_numpy(feats[:8]), torch.from_numpy(feats),
                         exclude_rows=torch.arange(8), k=10)
     assert torch.equal(i, ri)
+    # the two-tower model trains and its file round-trips without flax
+    import os, tempfile
+    from spotify_recommender_tpu_torch.core.config import TwoTowerConfig
+    from spotify_recommender_tpu_torch.models import two_tower
+    cfg = TwoTowerConfig(embedding_dim=8, hidden_dims=(16,), batch_size=16,
+                         num_steps=2)
+    res = two_tower.train(feats[:200], np.zeros(200, np.int32), cfg,
+                          device="cpu")
+    path = os.path.join(tempfile.mkdtemp(), "tt")
+    two_tower.save_model(path, res.params, cfg)
+    params, cfg2 = two_tower.load_model(path)
+    assert cfg2 == cfg and all(torch.equal(params[k], res.params[k])
+                               for k in params)
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    for name in sys.modules if sys.modules[name] is not None)
     print("OK")
@@ -74,6 +89,20 @@ def test_no_source_file_imports_the_jax_package_or_experiments():
         if name.split(".")[0] in FORBIDDEN
     }
     assert offenders == set()
+
+
+TWO_TOWER = ["models/two_tower.py", "models/flax_msgpack.py", "cli.py",
+             "benchmark.py"]
+
+
+@pytest.mark.parametrize("rel", TWO_TOWER)
+def test_two_tower_modules_are_checked_sources(rel):
+    """The two-tower slice's modules are among the files the import checks
+    walk, and import neither JAX nor flax, optax or msgpack."""
+    path = PKG / rel
+    assert path in SOURCES
+    assert not {n for n in imported_modules(path)
+                if n.split(".")[0] in FORBIDDEN}
 
 
 ABLATION = ["ops/cuda/ablation.py", "experiments/kernel_ablation_r2.py",

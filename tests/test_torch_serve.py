@@ -500,10 +500,11 @@ class TestPortBackends:
             svc.close()
 
     def test_retrieve_sends_unfilled_approx_slots_as_null(self, catalog):
-        """A query anti-aligned with the catalog leaves approx slots
-        unfilled (the pad columns crowd the bins): POST /retrieve gives
-        them as null in both lists, in a body a strict JSON parser takes,
-        and the filled slots are a direct call's."""
+        """k = 104 over the catalog's 100 rows leaves 4 approx slots of
+        each query unfilled (the pad columns never enter the scan's bins,
+        so an anti-aligned query fills the rest with real rows): POST
+        /retrieve gives them as null in both lists, in a body a strict JSON
+        parser takes, and the filled slots are a direct call's."""
         cfg = RetrievalConfig(dtype="bfloat16")
         srv = make_server(catalog, "127.0.0.1", 0, cfg, device="cpu")
         t = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -512,7 +513,7 @@ class TestPortBackends:
         try:
             url = f"http://127.0.0.1:{srv.server_address[1]}/retrieve"
             req = urllib.request.Request(
-                url, json.dumps({"queries": q.tolist(), "k": 10}).encode(),
+                url, json.dumps({"queries": q.tolist(), "k": 104}).encode(),
                 {"Content-Type": "application/json"}, method="POST")
             with urllib.request.urlopen(req, timeout=TIMEOUT) as r:
                 body = r.read()
@@ -526,8 +527,8 @@ class TestPortBackends:
             raise ValueError(f"not JSON: {name}")
 
         out = json.loads(body, parse_constant=reject)
-        ws, wi = Retriever(catalog, cfg, "cpu").retrieve_host(q, k=10)
-        assert (wi == -1).any()
+        ws, wi = Retriever(catalog, cfg, "cpu").retrieve_host(q, k=104)
+        assert len(catalog) == 100 and ((wi == -1).sum(axis=1) == 4).all()
         for rows, scores, w_rows, w_scores in zip(out["rows"], out["scores"],
                                                   wi, ws):
             assert [r is None for r in rows] == [s is None for s in scores]
