@@ -2,8 +2,9 @@
 
     python3 chip_smoke.py
 
-Builds the port's two CUDA kernel libraries (serving and experiments, at
-once) from `spotify_recommender_tpu_torch/csrc`, holds each kernel against
+Builds the port's two CUDA kernel libraries (serving and experiments) and
+its native CSV parser at once, from `spotify_recommender_tpu_torch/csrc`
+and `native/`, holds each kernel against
 its plain torch version on the card, runs the reference-style CLI on a
 114,000-row catalog, and drives the main paths at the benchmark's sizes:
 
@@ -84,7 +85,25 @@ its plain torch version on the card, runs the reference-style CLI on a
   0.99, no unfilled slot); kernels 1 and 2 at those shapes against their
   plain versions (the "scan_v3_tt" and "split_bf16x2_tt" entries); the
   towers on the card against the CPU (fp32, bf16), and the quality row's
-  two-tower keys from phase 17, card against CPU.
+  two-tower keys from phase 17, card against CPU;
+- phase 19: the data layer on a 1,000,000-row Spotify-schema CSV: the
+  native parse (native/csv_parser.cpp, built with g++ in phase 2 beside
+  nvcc) against the Python parse (equal tables), single-shot `preprocess`
+  against `preprocess --streaming --chunk-rows 200000` in child processes
+  (seconds and peak RSS, `resource.getrusage(RUSAGE_CHILDREN)`; the
+  streamed `dir-v1` catalog bitwise the single-shot one), and `retrieve` /
+  `--id` through the CLI over the memory-mapped directory;
+- phase 20: the row-sharded catalog at BASELINE config 4's 10,000,000 x
+  12 on one card: a 4-shard catalog mesh over the one device, through the
+  Retriever (certified per shard: kernels 2 and 1; B = 1024 and B = 1,
+  k = 10, exclusions on the shard borders), bitwise the single-card
+  certified tier, with fallbacks and escalations summed over shards and a
+  `torch.profiler` breakdown; kernel 3 per shard (the Retriever's backend
+  for a bf16 dtype) against the same answer; a 2-D data=2 x catalog=2
+  mesh; `save_sharded_catalog` / `load_sharded_catalog` / `from_artifact`
+  at 10M; `retrieve --catalog <sharded dir> --mesh catalog=1` through the
+  CLI; kernels 1, 2 and 3 at a shard's shapes against their plain versions
+  (the "*_sharded" entries; kernel 1's plain version in column chunks).
 
 Kernel 1's entries scan the catalog's real columns (`ncols`, as the
 tiers pass it); their bounds count those columns.
@@ -127,6 +146,7 @@ if not torch.cuda.is_available():
 
 from spotify_recommender_tpu_torch import benchmark, cli  # noqa: E402
 from spotify_recommender_tpu_torch.core.config import (  # noqa: E402
+    MeshConfig,
     MFConfig,
     RetrievalConfig,
     TwoTowerConfig,
@@ -136,7 +156,16 @@ from spotify_recommender_tpu_torch.core.device import (  # noqa: E402
     nvidia_smi,
 )
 from spotify_recommender_tpu_torch.core.timing import sync_ms  # noqa: E402
+from spotify_recommender_tpu_torch.core.mesh import make_mesh  # noqa: E402
+from spotify_recommender_tpu_torch.data import (  # noqa: E402
+    csv_ingest,
+    native_ingest,
+)
 from spotify_recommender_tpu_torch.data.catalog import Catalog  # noqa: E402
+from spotify_recommender_tpu_torch.data.sharded_catalog import (  # noqa: E402
+    load_sharded_catalog,
+    save_sharded_catalog,
+)
 from spotify_recommender_tpu_torch.experiments import (  # noqa: E402
     als_scale_1m,
     certified_proto,
@@ -164,8 +193,12 @@ from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import (  # noqa: E402
     scan_v2_plain,
 )
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (  # noqa: E402
+    bin_structures,
+    merge_bins,
     scan_v3,
     scan_v3_plain,
+    split_plane_dots,
+    top_slots,
 )
 from spotify_recommender_tpu_torch.ops.cuda.split import (  # noqa: E402
     split_bf16x2,
@@ -179,6 +212,9 @@ from spotify_recommender_tpu_torch.ops.fused_topk import (  # noqa: E402
     build_certified_layout,
     layout_to_device,
     prepare_and_call,
+)
+from spotify_recommender_tpu_torch.parallel.sharding import (  # noqa: E402
+    ShardedCatalog,
 )
 from spotify_recommender_tpu_torch.retrieval.retriever import (  # noqa: E402
     Retriever,
@@ -1367,6 +1403,334 @@ def two_tower_phase(kernels: dict, launches: dict, catalog_path: str,
           f"{time.perf_counter() - t18:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 19
+
+ING_ROWS = 1_000_000        # phase 19's CSV
+ING_CHUNK = 200_000         # its streaming chunk
+
+
+def child_rss(argv) -> Tuple[float, float]:
+    """(seconds, peak RSS MiB) of `python3 argv` in a child process: a
+    wrapper process runs it and reports resource.getrusage(
+    RUSAGE_CHILDREN), so no earlier child of this script (nvcc, ptxas)
+    enters the peak."""
+    wrapper = ("import resource, subprocess, sys; "
+               "rc = subprocess.run(sys.argv[1:], stdout=subprocess.DEVNULL)"
+               ".returncode; print(rc, resource.getrusage("
+               "resource.RUSAGE_CHILDREN).ru_maxrss)")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", wrapper, sys.executable, *argv],
+        capture_output=True, text=True, check=True, timeout=900,
+        cwd=Path(__file__).resolve().parent,
+    ).stdout.split()
+    check(out[0] == "0", f"child {argv} exited {out[0]}")
+    return time.perf_counter() - t0, int(out[1]) / 1024.0
+
+
+def tables_equal(a, b) -> bool:
+    return (a.num_valid_rows == b.num_valid_rows
+            and a.num_input_rows == b.num_input_rows
+            and list(a.track_ids) == list(b.track_ids)
+            and list(a.track_names) == list(b.track_names)
+            and list(a.artists) == list(b.artists)
+            and a.genre_names == b.genre_names
+            and np.array_equal(a.genre_ids, b.genre_ids)
+            and np.array_equal(a.raw_features, b.raw_features))
+
+
+def ingest_phase(work: Path, gxx_s: float) -> None:
+    """Phase 19: the data layer at 1M rows: the native parse against the
+    Python parse, streaming against single-shot preprocessing (bitwise, in
+    child processes with their peak RSS), and `retrieve` / `recommend`
+    through the CLI over the streamed memory-mapped directory."""
+    t19 = time.perf_counter()
+    csv = work / "songs_1m.csv"
+    t0 = time.perf_counter()
+    make_songs_csv(csv, ING_ROWS, 114, seed=3)
+    t_csv = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = csv_ingest.ingest_csv(str(csv), use_native=True)
+    t_nat = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    py = csv_ingest.ingest_csv(str(csv), use_native=False)
+    t_py = time.perf_counter() - t0
+    check(nat.num_valid_rows == ING_ROWS and tables_equal(nat, py),
+          "phase 19: native and Python parses differ")
+    del nat, py
+    single, stream = work / "single_1m.npz", work / "stream_1m"
+    cmd = ["-m", "spotify_recommender_tpu_torch", "--device", "cuda",
+           "preprocess", str(csv), "-o"]
+    t_stream, rss_stream = child_rss(
+        cmd + [str(stream), "--streaming", "--chunk-rows", str(ING_CHUNK)])
+    t_single, rss_single = child_rss(cmd + [str(single)])
+    # what the child holds before it reads a row: its imports
+    t_base, rss_base = child_rss(
+        ["-c", "import spotify_recommender_tpu_torch.cli, "
+         "spotify_recommender_tpu_torch.data.streaming"])
+    ref, cat = Catalog.load(str(single)), Catalog.load(str(stream))
+    check(isinstance(cat.features, np.memmap), "streamed catalog not memmapped")
+    for name in ("features", "norms", "genre_ids", "min_vals", "max_vals"):
+        check(np.array_equal(getattr(cat, name), getattr(ref, name)),
+              f"phase 19: streamed {name} differ from single-shot")
+    for name in ("track_ids", "track_names", "artists"):
+        check(np.array_equal(np.asarray(getattr(cat, name), np.str_),
+                             np.asarray(getattr(ref, name), np.str_)),
+              f"phase 19: streamed {name} differ from single-shot")
+    check(cat.genre_names == ref.genre_names, "phase 19: genre names differ")
+    # the CLI over the memory-mapped directory
+    rows = np.random.default_rng(19).integers(0, ING_ROWS, 16)
+    np.save(work / "q19.npy", cat.features[rows])
+    t0 = time.perf_counter()
+    run_cli(["--device", "cuda", "retrieve", str(work / "q19.npy"), "--catalog",
+             str(stream), "-k", "10", "-o", str(work / "r19.npz")])
+    f = torch.from_numpy(np.array(cat.features)).to(DEV)
+    nrm = torch.from_numpy(np.array(cat.norms)).to(DEV)
+    fs, fi = similarity.exact_topk_chunked(
+        f[torch.from_numpy(rows).to(DEV)], f, nrm, k=10, fixed_order=True)
+    with np.load(work / "r19.npz") as z:
+        check(np.array_equal(z["rows"], fi.cpu().numpy())
+              and np.array_equal(z["scores"], fs.cpu().numpy()),
+              "phase 19: retrieve over the streamed dir is not the oracle's")
+    del f, nrm
+    out = run_cli(["--device", "cuda", "--id", "tid000042", "--catalog",
+                   str(stream)])
+    check_recommendations(out, cat, 42, 10)
+    t_cli = time.perf_counter() - t0
+    print(f"phase 19 ingest: {ING_ROWS} rows ({csv.stat().st_size / 2**20:.1f} "
+          f"MiB CSV written in {t_csv:.1f} s); g++ build of the native parser "
+          f"{gxx_s:.2f} s (phase 2, beside nvcc); parse native {t_nat:.2f} s vs "
+          f"Python {t_py:.2f} s, tables equal; preprocess single-shot "
+          f"{t_single:.1f} s (peak RSS {rss_single:.0f} MiB) vs --streaming "
+          f"--chunk-rows {ING_CHUNK} {t_stream:.1f} s (peak RSS "
+          f"{rss_stream:.0f} MiB), each a child process (its imports alone: "
+          f"{t_base:.1f} s, {rss_base:.0f} MiB); the streamed dir-v1 "
+          f"catalog bitwise the single-shot one; retrieve (16 queries) and "
+          f"--id over the memory-mapped dir equal the fixed-order oracle "
+          f"({t_cli:.1f} s); {time.perf_counter() - t19:.1f} s")
+
+
+# ---------------------------------------------------------------- phase 20
+
+SHARD_N = 10_000_000        # BASELINE config 4's catalog
+SHARDS = 4                  # catalog shards on the one card
+
+
+def scan_v3_plain_chunked(q2, ft, *, w, depth, topc, ncols, chunk=1 << 18):
+    """`scan_v3_plain` in column chunks (multiples of w): each chunk's bin
+    structures, merged in column order as the kernel's merge does (bitwise
+    the single walk, ops/cuda/scan_v3.split_bin_structures)."""
+    parts = []
+    for c0 in range(0, ft.shape[1], chunk):
+        dots = split_plane_dots(q2, ft[:, c0:c0 + chunk])
+        dots[:, max(0, ncols - c0):] = float("-inf")
+        sv, si, bnd = bin_structures(dots, w, depth)
+        parts.append((sv, torch.where(si >= 0, si + c0, si), bnd))
+        del dots
+    return top_slots(*merge_bins(parts, depth), topc)
+
+
+def sharded_phase(kernels: dict, launches: dict, work: Path) -> None:
+    """Phase 20: the row-sharded catalog at BASELINE config 4's 10M x 12 on
+    one card: a 4-shard catalog mesh over the one device (the Retriever's
+    certified backend: kernels 2 and 1 per shard; kernel 3 per shard), a
+    2-D data=2 x catalog=2 mesh, the sharded artifact and `from_artifact`,
+    and `retrieve --catalog <sharded dir> --mesh catalog=1`; adds the
+    sharded entries to the kernels line."""
+    t20 = time.perf_counter()
+    k, b = 10, 1024
+    feats, norms, _, _ = benchmark._make_inputs(SHARD_N, 1, 12)
+    ids = np.arange(SHARD_N).astype(np.str_)
+    cat = Catalog(feats, norms, ids, ids, ids, np.zeros(SHARD_N, np.int32),
+                  ["g"], np.zeros(11, np.float32), np.ones(11, np.float32))
+    t0 = time.perf_counter()
+    single = CertifiedRetriever(feats, norms, None, DEV)
+    torch.cuda.synchronize()
+    t_single_setup = time.perf_counter() - t0
+    mesh4 = make_mesh(MeshConfig(catalog=SHARDS), devices=[DEV] * SHARDS)
+    t0 = time.perf_counter()
+    retriever = Retriever(cat, None, DEV, mesh=mesh4)
+    torch.cuda.synchronize()
+    t_shard_setup = time.perf_counter() - t0
+    sc = retriever.sharded
+    check(retriever.backend == "sharded" and sc.backend == "certified",
+          f"phase 20: backend {retriever.backend} / {sc.backend}")
+    n_local = sc.n_local
+    rows = np.random.default_rng(20).integers(0, SHARD_N, size=b)
+    # exclusions on and beside every shard border
+    border = np.array([c * n_local + o for c in range(1, SHARDS) for o in (-1, 0)
+                       if c * n_local + o < SHARD_N])
+    rows[:border.size] = border
+    queries = torch.from_numpy(feats[rows]).to(DEV)
+    excl = torch.from_numpy(rows).to(DEV)
+    ref_s, ref_i = single(queries, k, excl)
+    single_fb, single_esc = single.fallbacks, single.escalations
+
+    split_bf16x2.launches = scan_v3.launches = fused_topk.launches = 0
+    s, i = retriever.retrieve(queries, k=k, exclude_rows=excl)
+    torch.cuda.synchronize()
+    n_split, n_scan = split_bf16x2.launches, scan_v3.launches
+    check(n_split >= SHARDS and n_scan >= SHARDS and fused_topk.launches == 0,
+          f"phase 20: sharded batch launches split {n_split}, scan {n_scan}")
+    launches["split_bf16x2_sharded"] = n_split
+    launches["scan_v3_sharded"] = n_scan
+    fb, esc = sc.fallbacks, sc.escalations
+    check(torch.equal(i, ref_i) and torch.equal(s, ref_s),
+          "phase 20: sharded certified batch differs from the single-card "
+          f"tier in {(i != ref_i).sum().item()} indices")
+    check(not bool((i == excl[:, None]).any()), "phase 20: an excluded row "
+          "was returned")
+    s1, i1 = retriever.retrieve(queries[:1], k=k, exclude_rows=excl[:1])
+    check(torch.equal(i1, ref_i[:1]) and torch.equal(s1, ref_s[:1]),
+          "phase 20: sharded B=1 differs from the single-card tier")
+    t_cert = wall_ms(lambda: retriever.retrieve(queries, k=k,
+                                                exclude_rows=excl), 10)
+    t_cert1 = wall_ms(lambda: retriever.retrieve(queries[:1], k=k,
+                                                 exclude_rows=excl[:1]), 20)
+    t_single = wall_ms(lambda: single(queries, k, excl), 10)
+    t_single1 = wall_ms(lambda: single(queries[:1], k, excl[:1]), 20)
+    _, prof_kernels, idle = profile_batch(
+        lambda: retriever.retrieve(queries, k=k, exclude_rows=excl))
+
+    # kernel 3 per shard: the Retriever's backend for a non-fp32 dtype
+    pallas = Retriever(cat, RetrievalConfig(dtype="bfloat16"), DEV, mesh=mesh4)
+    check(pallas.sharded.backend == "pallas", "phase 20: pallas backend")
+    fused_topk.launches = 0
+    ps, pi = pallas.retrieve(queries, k=k, exclude_rows=excl)
+    torch.cuda.synchronize()
+    launches["fused_topk_sharded"] = fused_topk.launches
+    check(fused_topk.launches == SHARDS,
+          f"phase 20: kernel 3 launched {fused_topk.launches} times")
+    p_err, p_ties = compare_oracle(ps, pi, ref_s, ref_i, TOL_EXACT,
+                                   "phase 20 pallas")
+    t_pal = wall_ms(lambda: pallas.retrieve(queries, k=k, exclude_rows=excl), 10)
+    t_pal1 = wall_ms(lambda: pallas.retrieve(queries[:1], k=k,
+                                             exclude_rows=excl[:1]), 20)
+
+    # kernels at the sharded path's shapes (shard 0: n_local columns)
+    shard0 = sc._shards[(0, str(DEV))]
+    dl = shard0.layout
+    qn = similarity.row_norms(queries)
+    qunit = queries / qn.clamp_min(1e-30)[:, None]
+    hi, lo = split_bf16x2(qunit)
+    phi, plo = split_bf16x2_plain(qunit)
+    check(torch.equal(hi.view(torch.int16), phi.view(torch.int16))
+          and torch.equal(lo.view(torch.int16), plo.view(torch.int16)),
+          "phase 20: split kernel differs from plain")
+    kernels["split_bf16x2_sharded"] = dict(
+        source=f"{CSRC}/split_bf16x2.cu", replaces=f"{PALLAS}:237",
+        max_abs_err=0.0, ms=sync_ms(lambda: split_bf16x2(qunit), 50),
+        plain_ms=sync_ms(lambda: split_bf16x2_plain(qunit), 50),
+        **bound(qunit.numel(), "fp32", qunit, hi, lo), library_ms=None,
+    )
+    q2 = torch.cat([hi, lo, lo, hi], dim=1)
+    c_top = min(max(RetrievalConfig().prefilter, k), dl.depth * dl.w)
+    kv, ki, kb = scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth, topc=c_top,
+                         ncols=shard0.num_items)
+    t0 = time.perf_counter()
+    pv, pi_, pb = scan_v3_plain_chunked(q2, dl.ft, w=dl.w, depth=dl.depth,
+                                        topc=c_top, ncols=shard0.num_items)
+    torch.cuda.synchronize()
+    plain_scan_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(kv, pv) and torch.equal(ki, pi_) and torch.equal(kb, pb),
+          "phase 20: kernel 1 at the shard's shape differs from plain")
+    real = dl.ft[:, :shard0.num_items]
+    kernels["scan_v3_sharded"] = dict(
+        source=f"{CSRC}/scan_v3.cu", replaces=f"{PALLAS}:1069",
+        max_abs_err=0.0,
+        ms=sync_ms(lambda: scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth,
+                                   topc=c_top, ncols=shard0.num_items), 10),
+        plain_ms=plain_scan_ms,
+        **bound(dot_flops(q2, real, q2.shape[1]), "bf16", q2, real, kv, ki, kb),
+        library_ms=None,
+    )
+    fr0 = pallas.sharded._shards[(0, str(DEV))]
+    # shard 0's frame: its exclusions, its valid count
+    fargs = (queries, qn, fr0.features_t, fr0.norms,
+             torch.where(excl < n_local, excl, -1), fr0.num_items)
+    fkv, fki, f_err = compare_fused(fargs, k, True, "phase 20 kernel 3 shard 0")
+    t0 = time.perf_counter()
+    fused_topk_plain(*fargs, k=k, exact=True)
+    torch.cuda.synchronize()
+    plain_fused_ms = (time.perf_counter() - t0) * 1e3
+    ft0 = fr0.features_t
+    kernels["fused_topk_sharded"] = dict(
+        source=f"{CSRC}/fused_topk.cu", replaces=f"{PALLAS}:52",
+        max_abs_err=f_err,
+        ms=sync_ms(lambda: fused_topk(*fargs, k=k, exact=True), 10),
+        plain_ms=plain_fused_ms,
+        **bound(dot_flops(queries, ft0, ft0.shape[0]), "fp32", *fargs[:5],
+                fkv, fki),
+        library_ms=sync_ms(lambda: torch.topk(torch.mm(queries, ft0), k), 10),
+    )
+    del hi, lo, phi, plo, q2, kv, ki, kb, pv, pi_, pb, real, pallas, fr0, ft0
+    del fargs, fkv, fki
+    torch.cuda.empty_cache()
+
+    # the 2-D data x catalog mesh on the same card
+    mesh22 = make_mesh(MeshConfig(data=2, catalog=2), devices=[DEV] * 4)
+    sc22 = ShardedCatalog(feats, norms, mesh22, use_certified=True,
+                          data_axis="data")
+    s22, i22 = sc22.retrieve(queries, k, excl)
+    check(torch.equal(i22, ref_i) and torch.equal(s22, ref_s),
+          "phase 20: 2-D mesh differs from the single-card tier")
+    t_22 = wall_ms(lambda: sc22.retrieve(queries, k, excl), 10)
+    fb22 = sc22.fallbacks
+    del sc22
+    torch.cuda.empty_cache()
+
+    # the sharded artifact at 10M, from_artifact, and the CLI on it
+    art_dir = work / "sharded_10m"
+    t0 = time.perf_counter()
+    save_sharded_catalog(cat, str(art_dir))
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = load_sharded_catalog(str(art_dir), mesh4)
+    sca = ShardedCatalog.from_artifact(art, mesh4)
+    torch.cuda.synchronize()
+    t_art = time.perf_counter() - t0
+    sa, ia = sca.retrieve(queries, k, excl)
+    check(torch.equal(ia, ref_i) and torch.equal(sa, ref_s),
+          "phase 20: from_artifact differs from the single-card tier")
+    del sca
+    torch.cuda.empty_cache()
+    q8 = feats[rows[:8]]
+    np.save(work / "q20.npy", q8)
+    t0 = time.perf_counter()
+    run_cli(["--device", "cuda", "retrieve", str(work / "q20.npy"), "--catalog",
+             str(art_dir), "--mesh", "catalog=1", "-k", str(k), "-o",
+             str(work / "r20.npz")])
+    t_cli = time.perf_counter() - t0
+    es, ei = single(q8, k)
+    with np.load(work / "r20.npz") as z:
+        check(np.array_equal(z["rows"], ei.cpu().numpy())
+              and np.array_equal(z["scores"], es.cpu().numpy())
+              and list(z["track_ids"][0]) == [str(r) for r in ei[0].tolist()],
+              "phase 20: retrieve on the sharded dir differs")
+    del single, retriever
+    torch.cuda.empty_cache()
+    print(f"phase 20 sharded serving: N={SHARD_N} x 12, {SHARDS} catalog shards "
+          f"on one card ({n_local} rows each), B={b} k={k} with exclusions at "
+          f"the shard borders: certified backend bitwise the single-card "
+          f"certified tier (B={b} and B=1), launches split {n_split} scan "
+          f"{n_scan}; per batch fallbacks {fb} escalations {esc} summed over "
+          f"shards (single card {single_fb} / {single_esc}); batch "
+          f"{t_cert:.3f} ms, B=1 {t_cert1:.3f} ms vs the single-card tier "
+          f"{t_single:.3f} ms, B=1 {t_single1:.3f} ms; profile of a sharded "
+          f"batch: device idle share {idle:.3f}, "
+          + ", ".join(f"{nm} {ms:.4g}" for nm, ms in
+                      list(prof_kernels.items())[:4]) + " ms; "
+          f"pallas backend (kernel 3 per shard, {launches['fused_topk_sharded']}"
+          f" launches) max score diff {p_err:.3g}, {p_ties} near-tie positions "
+          f"differ, batch {t_pal:.3f} ms, B=1 {t_pal1:.3f} ms; 2-D data=2 x "
+          f"catalog=2 bitwise, batch {t_22:.3f} ms, fallbacks {fb22}; "
+          f"save_sharded_catalog {t_save:.1f} s, load + from_artifact "
+          f"{t_art:.1f} s, bitwise; retrieve --catalog <sharded dir> --mesh "
+          f"catalog=1 {t_cli:.1f} s, equal; set-up single {t_single_setup:.1f}"
+          f" s, sharded {t_shard_setup:.1f} s; "
+          f"{time.perf_counter() - t20:.1f} s")
+
+
 def main() -> None:
     kernels = {}
 
@@ -1387,9 +1751,21 @@ def main() -> None:
         _build.library(lib)
         return path, time.perf_counter() - t
 
-    with concurrent.futures.ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+    def build_parser():
+        # a cold build into a scratch root (the package's _build/ may hold
+        # one already), then the package's own
+        with tempfile.TemporaryDirectory() as tmp:
+            t = time.perf_counter()
+            native_ingest.build(Path(tmp))
+            secs = time.perf_counter() - t
+        native_ingest.library()
+        return secs
+
+    with concurrent.futures.ThreadPoolExecutor(len(_build.LIBRARIES) + 1) as pool:
         jobs = {lib.name: pool.submit(build, lib) for lib in _build.LIBRARIES}
+        gxx_job = pool.submit(build_parser)
         built = {name: job.result() for name, job in jobs.items()}
+        gxx_s = gxx_job.result()
     line, fused_regs = [], []
     for lib in _build.LIBRARIES:
         path, secs = built[lib.name]
@@ -1404,7 +1780,9 @@ def main() -> None:
                        if nm.startswith("fused_partial_kernel")]
     check(len(fused_regs) == 9 and not any(sp for *_, sp in fused_regs),
           f"kernel 3's instances: {fused_regs} (9 expected, none spilling)")
-    print("phase 2 build (both libraries at once): " + "; ".join(line)
+    print("phase 2 build (both libraries and the native csv parser at "
+          "once): " + "; ".join(line) + f"; {native_ingest.LIB_NAME} (g++) in "
+          f"{gxx_s:.1f} s"
           + "; kernel 3 (fused_partial_kernel<KPL,EXACT>) registers: "
           + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill")
 
@@ -2108,6 +2486,12 @@ def main() -> None:
     del fixed
     torch.cuda.empty_cache()
     two_tower_phase(kernels, launches, catalog, cat, rows, uniform64, quality)
+    torch.cuda.empty_cache()
+
+    # ---- 19-20. the data layer at 1M rows; the sharded catalog at 10M
+    ingest_phase(Path(work.name), gxx_s)
+    torch.cuda.empty_cache()
+    sharded_phase(kernels, launches, Path(work.name))
     work.cleanup()
 
     low = {nm: (kv["ms"], kv["bound_ms"]) for nm, kv in kernels.items()

@@ -7,9 +7,13 @@ the JAX package's two calling styles:
     ``... --preprocess dataset.csv``
     ``... --song "Bohemian Rhapsody" -n 5``
     ``... --id "3ade68b8e" -n 10``
-- subcommands: ``preprocess`` (formats npz and bin), ``recommend``,
-  ``retrieve`` (batched query vectors -> top-k; ``--streaming`` streams a
-  memory-mapped catalog directory through the device in windows),
+- subcommands: ``preprocess`` (formats npz, bin, the memory-mapped
+  ``dir`` and the ``sharded`` artifact; ``--streaming`` ingests in bounded
+  RAM into a ``dir``), ``recommend``, ``retrieve`` (batched query vectors
+  -> top-k; ``--streaming`` streams a memory-mapped catalog directory
+  through the device in windows, ``--mesh data=N,catalog=M`` row-shards
+  the catalog over a device mesh, and a sharded artifact directory is
+  served shard by shard),
   ``serve`` (the HTTP service, serve/server.py), ``benchmark`` (one
   benchmark row as a JSON line, benchmark.py), the matrix-factorization
   path (models/mf.py): ``train-mf`` (ALS, iALS++ ``--subspace``, SGD;
@@ -21,8 +25,11 @@ the JAX package's two calling styles:
   catalog).
 
 A global ``--device`` flag (default ``cuda``) names the device retrieval
-and training run on; ``--device cuda`` without a card raises.  A ``--mesh``
-exits 1, as does the JAX package's ``autotune``, which is not ported yet.
+and training run on; ``--device cuda`` without a card raises.  A mesh
+spans the visible cards, or under ``--device cpu`` that many shards on
+the CPU.  ``train-mf --mesh`` / ``--shard-tables`` and
+``train-two-tower --mesh`` exit 1, as does the JAX package's
+``autotune``, which is not ported yet.
 
 The default catalog artifact is ``songs_catalog.npz``, the same file the
 JAX package writes and reads.
@@ -52,13 +59,74 @@ BANNER = """\
 NOT_PORTED = ("autotune",)
 
 
-def cmd_preprocess(csv_path: str, output: str, fmt: str = "npz") -> int:
+def _parse_mesh(spec: Optional[str], device: str):
+    """``--mesh data=N,catalog=M`` -> core.mesh.Mesh (None when absent).
+
+    Either axis may be omitted (defaults to 1).  On CUDA the mesh takes the
+    visible cards and its size must not exceed their count (make_mesh
+    checks); under ``--device cpu`` it runs its N x M cells on the CPU."""
+    if not spec:
+        return None
+    import torch
+
+    from spotify_recommender_tpu_torch.core.config import MeshConfig
+    from spotify_recommender_tpu_torch.core.device import resolve_device
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+
+    axes = {"data": 1, "catalog": 1}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise SystemExit(
+                f"--mesh expects axis=N pairs (e.g. data=8,catalog=1), got {part!r}"
+            )
+        name, _, val = part.partition("=")
+        name = name.strip()
+        if name not in axes:
+            raise SystemExit(
+                f"--mesh axis must be 'data' or 'catalog', got {name!r}"
+            )
+        axes[name] = int(val)
+    cfg = MeshConfig(data=axes["data"], catalog=axes["catalog"])
+    dev = resolve_device(device)
+    return make_mesh(cfg, None if dev.type == "cuda"
+                     else [torch.device("cpu")] * cfg.num_devices)
+
+
+def cmd_preprocess(
+    csv_path: str,
+    output: str,
+    fmt: str = "npz",
+    streaming: bool = False,
+    chunk_rows: int = 200_000,
+) -> int:
     from spotify_recommender_tpu_torch.data.catalog import preprocess_csv
 
     print("=== PREPROCESSING MODE ===")
-    if fmt == "bin":
+    if streaming or fmt == "dir":
+        from spotify_recommender_tpu_torch.data.streaming import (
+            preprocess_csv_streaming,
+        )
+
+        out_dir = output[:-4] if output.endswith(".npz") else output
+        cat = preprocess_csv_streaming(csv_path, out_dir, chunk_rows=chunk_rows)
+        output = out_dir
+    elif fmt == "bin":
         cat = preprocess_csv(csv_path, None)
         cat.save_reference_binary(output)
+    elif fmt == "sharded":
+        # the sharded artifact (data/sharded_catalog.py): per-shard row
+        # blocks that `retrieve --catalog` serves shard by shard
+        from spotify_recommender_tpu_torch.data.sharded_catalog import (
+            save_sharded_catalog,
+        )
+
+        out_dir = output[:-4] if output.endswith(".npz") else output
+        cat = preprocess_csv(csv_path, None)
+        save_sharded_catalog(cat, out_dir)
+        output = out_dir
     else:
         cat = preprocess_csv(csv_path, output)
     print(f"Valid songs: {len(cat)}")
@@ -120,14 +188,70 @@ def cmd_recommend(
     return 0
 
 
+def _print_retrieved(args, queries, scores, rows, track_ids) -> None:
+    import json
+
+    import numpy as np
+
+    if args.output:
+        np.savez_compressed(
+            args.output,
+            scores=scores,
+            rows=rows,
+            track_ids=track_ids[rows].astype(np.str_),
+        )
+        print(f"retrieved top-{args.k} for {len(queries)} queries -> {args.output}")
+    else:
+        for b in range(len(queries)):
+            print(json.dumps({
+                "query": b,
+                "rows": rows[b].tolist(),
+                "scores": [round(float(s), 6) for s in scores[b]],
+                "track_ids": [str(t) for t in track_ids[rows[b]]],
+            }))
+
+
+def _retrieve_from_sharded_artifact(args, queries, device: str) -> int:
+    """retrieve --catalog <sharded dir> [--mesh catalog=N] (JAX cli.py
+    :170-224): open the artifact on the mesh (by default every visible
+    card on "catalog", one CPU shard under --device cpu) and serve it with
+    the certified tier per shard, each shard built from its own rows."""
+    import numpy as np
+    import torch
+
+    from spotify_recommender_tpu_torch.core.config import MeshConfig
+    from spotify_recommender_tpu_torch.core.device import resolve_device
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+    from spotify_recommender_tpu_torch.data.sharded_catalog import (
+        load_sharded_catalog,
+    )
+    from spotify_recommender_tpu_torch.parallel.sharding import ShardedCatalog
+
+    mesh = _parse_mesh(args.mesh, device)
+    if mesh is None:
+        dev = resolve_device(device)
+        mesh = (make_mesh() if dev.type == "cuda"
+                else make_mesh(MeshConfig(), [torch.device("cpu")]))
+    try:
+        art = load_sharded_catalog(args.catalog, mesh)
+    except ValueError as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    sc = ShardedCatalog.from_artifact(art, mesh)
+    scores, rows = sc.retrieve(np.asarray(queries, np.float32), args.k)
+    _print_retrieved(args, queries, scores.cpu().numpy(), rows.cpu().numpy(),
+                     art.host_column("track_ids"))
+    return 0
+
+
 def cmd_retrieve(args, device: str) -> int:
     """Batched retrieval from a query-vectors file (JAX cli.py:227-276).
 
     A catalog directory is dispatched on its ``meta.json`` ``layout``:
-    ``dir-v1`` loads memory-mapped; the JAX package's sharded ``ocdbt-v1``
-    artifact is not ported.  (The JAX CLI sends every directory with a
+    ``dir-v1`` loads memory-mapped, ``npy-shards-v1`` (the port's sharded
+    artifact) is served shard by shard, and the JAX package's orbax
+    ``ocdbt-v1`` exits 1.  (The JAX CLI sends every directory with a
     ``meta.json`` to its sharded loader, which fails on ``dir-v1``.)"""
-    import json
     import os
 
     import numpy as np
@@ -141,44 +265,23 @@ def cmd_retrieve(args, device: str) -> int:
         StreamingRetriever,
     )
 
-    if args.mesh:
-        print("Error: --mesh (sharded catalog) is not ported yet "
-              "(see ROADMAP.md)", file=sys.stderr)
-        return 1
-    if os.path.isdir(args.catalog):
-        layout = read_dir_meta(args.catalog).get("layout")
-        if layout != "dir-v1":
-            print(f"Error: catalog layout {layout!r} is not ported yet "
-                  "(see ROADMAP.md)", file=sys.stderr)
-            return 1
     if args.queries.endswith(".npy"):
         queries = np.load(args.queries)
     else:
         with np.load(args.queries) as z:
             queries = z["queries"]
+    if (os.path.isdir(args.catalog)
+            and read_dir_meta(args.catalog).get("layout") != "dir-v1"):
+        return _retrieve_from_sharded_artifact(args, queries, device)
     cat = load_catalog(args.catalog)
     if args.streaming:
         retriever = StreamingRetriever(cat.features, cat.norms, None, device)
     else:
-        retriever = Retriever(cat, None, device)
+        retriever = Retriever(cat, None, device,
+                              mesh=_parse_mesh(args.mesh, device))
     scores, rows = retriever.retrieve(queries, k=args.k)
-    scores, rows = scores.cpu().numpy(), rows.cpu().numpy()
-    if args.output:
-        np.savez_compressed(
-            args.output,
-            scores=scores,
-            rows=rows,
-            track_ids=np.asarray(cat.track_ids)[rows].astype(np.str_),
-        )
-        print(f"retrieved top-{args.k} for {len(queries)} queries -> {args.output}")
-    else:
-        for b in range(len(queries)):
-            print(json.dumps({
-                "query": b,
-                "rows": rows[b].tolist(),
-                "scores": [round(float(s), 6) for s in scores[b]],
-                "track_ids": [str(t) for t in np.asarray(cat.track_ids)[rows[b]]],
-            }))
+    _print_retrieved(args, queries, scores.cpu().numpy(), rows.cpu().numpy(),
+                     np.asarray(cat.track_ids))
     return 0
 
 
@@ -392,10 +495,18 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("csv")
     sp.add_argument("-o", "--output", default=DEFAULT_CATALOG)
     sp.add_argument(
-        "--format", dest="fmt", default="npz", choices=["npz", "bin"],
-        help="npz (compressed, default) | bin (legacy reference "
-             "songs_data.bin)",
+        "--format", dest="fmt", default="npz",
+        choices=["npz", "dir", "bin", "sharded"],
+        help="npz (compressed, default) | dir (memory-mapped directory, "
+             "O(0) load for multi-GB catalogs) | bin (legacy reference "
+             "songs_data.bin) | sharded (per-shard row blocks for retrieve "
+             "--mesh)",
     )
+    sp.add_argument(
+        "--streaming", action="store_true",
+        help="bounded-RAM chunked ingest (implies --format dir)",
+    )
+    sp.add_argument("--chunk-rows", type=int, default=200_000)
 
     sr = sub.add_parser("recommend", help="top-N similar songs")
     g = sr.add_mutually_exclusive_group(required=True)
@@ -412,12 +523,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     sv.add_argument("-k", type=int, default=10)
     sv.add_argument("--catalog", default=DEFAULT_CATALOG,
-                    help=".npz, .bin, or a dir-v1 catalog directory "
-                         "(memory-mapped)")
+                    help=".npz, .bin, a dir-v1 catalog directory "
+                         "(memory-mapped) or a sharded artifact directory")
     sv.add_argument("-o", "--output", default=None,
                     help="write results to .npz (default: print JSON)")
     sv.add_argument("--mesh", default=None,
-                    help="device mesh of the JAX package (not ported: exits 1)")
+                    help="device mesh, e.g. data=1,catalog=8 (row-sharded catalog)")
     sv.add_argument("--streaming", action="store_true",
                     help="host-stream the catalog through the device in "
                          "windows (capacity tier for catalogs beyond "
@@ -591,7 +702,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.command == "preprocess":
-        return cmd_preprocess(args.csv, args.output, fmt=args.fmt)
+        return cmd_preprocess(args.csv, args.output, fmt=args.fmt,
+                              streaming=args.streaming,
+                              chunk_rows=args.chunk_rows)
     if args.command == "recommend":
         query = args.track_id if args.track_id else args.song
         return cmd_recommend(

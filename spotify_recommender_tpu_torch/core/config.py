@@ -44,6 +44,23 @@ class CatalogConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (core/mesh.make_mesh).
+
+    axis "data"    — data parallelism over the query batch
+    axis "catalog" — catalog rows sharded over devices (row-sharded items)
+    """
+
+    data: int = 1
+    catalog: int = 1
+    axis_names: Sequence[str] = ("data", "catalog")
+
+    @property
+    def num_devices(self) -> int:
+        return self.data * self.catalog
+
+
+@dataclasses.dataclass(frozen=True)
 class RetrievalConfig:
     """Retrieval knobs (reference defaults: top-10, main.cpp:166)."""
 

@@ -51,7 +51,10 @@ def nvidia_smi(query: str = "name,power.limit") -> Optional[str]:
     return out.stdout.strip()
 
 
-def device_info(device: torch.device) -> DeviceInfo:
+def device_info(device: Union[str, torch.device] = "cuda") -> DeviceInfo:
+    """What runs `device` (the card by default; raises where torch sees
+    none, as `resolve_device` does)."""
+    device = resolve_device(device)
     if device.type != "cuda":
         return DeviceInfo("cpu", 1, "cpu", None, None)
     index = device.index if device.index is not None else 0

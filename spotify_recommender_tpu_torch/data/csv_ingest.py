@@ -16,8 +16,8 @@ Behavior-compatible rebuild of the reference's preprocessing front half
   valid rows (the reference assigns ids under an `omp critical`, so its ids
   depend on thread interleaving, DataManager.cpp:244-251).
 
-This is the pure-Python parse path of the JAX package's module; the native
-C++ tokenizer binding is not ported yet (ROADMAP queue 1).
+`ingest_csv` parses with the native C++ tokenizer (data/native_ingest.py)
+by default, and with `parse_csv_rows` under `use_native=False`.
 """
 
 from __future__ import annotations
@@ -188,8 +188,11 @@ def parse_csv_rows(
     )
 
 
-def ingest_csv(csv_path: str) -> RawTable:
-    """Read + parse a CSV file end-to-end."""
+def ingest_csv(csv_path: str, use_native: bool = True) -> RawTable:
+    """Read + parse a CSV file end-to-end: with the native tokenizer
+    (data/native_ingest.py, built with g++ at first use; a failed build
+    raises, it never falls back), or under `use_native=False` with
+    `parse_csv_rows`.  Both give the same table."""
     timer = PhaseTimer()
     with timer.phase("read"):
         with open(csv_path, "r", encoding="utf-8", errors="replace",
@@ -209,10 +212,17 @@ def ingest_csv(csv_path: str) -> RawTable:
         else:
             header_line = content[:nl]
             lines = content[nl + 1 :].split("\n")
-    with timer.phase("parse"):
-        table = parse_csv_rows(header_line, lines)
+    if use_native:
+        from spotify_recommender_tpu_torch.data import native_ingest
+
+        with timer.phase("parse_native"):
+            table = native_ingest.parse_csv_rows_native(header_line, lines)
+    else:
+        with timer.phase("parse"):
+            table = parse_csv_rows(header_line, lines)
     log.info(
-        "ingest: %d/%d valid rows, %d genres (%s)",
+        "ingest%s: %d/%d valid rows, %d genres (%s)",
+        "(native)" if use_native else "",
         table.num_valid_rows,
         table.num_input_rows,
         len(table.genre_names),

@@ -58,6 +58,7 @@ TPU or on XLA (also listed in ROADMAP.md section 3):
 from __future__ import annotations
 
 import dataclasses
+import math
 import threading
 from typing import Optional, Tuple, Union
 
@@ -418,10 +419,28 @@ class DeviceLayout:
     rn_min: float
 
 
+@dataclasses.dataclass
+class CertifiedBatch:
+    """A certified batch between `CertifiedRetriever.start` and `finish`:
+    its inputs and the rerank's answer with each query's certificate
+    (`ok` None where the oracle served the whole batch)."""
+
+    queries: torch.Tensor
+    excl: torch.Tensor
+    k: int
+    qn: Optional[torch.Tensor]
+    q2: Optional[torch.Tensor]
+    top_s: torch.Tensor
+    top_i: torch.Tensor
+    ok: Optional[torch.Tensor]
+
+
 def build_certified_layout(
     features: np.ndarray,
     norms: Optional[np.ndarray],
     config: RetrievalConfig,
+    *,
+    n_shards: int = 1,
 ) -> CertifiedLayout:
     """The certified tier's host-side buffers.
 
@@ -433,7 +452,13 @@ def build_certified_layout(
     choice that differs is the planes: the port always stores 2 planes
     [hi; lo].  The JAX package's default 4 planes [hi; lo; hi; lo] feed one
     48-deep MXU pass on a TPU; on CUDA cores the duplicate planes would only
-    double the bytes read, for the same FMAs."""
+    double the bytes read, for the same FMAs.
+
+    With `n_shards > 1` (parallel/sharding.py) the padded length is a
+    multiple of `n_shards` x lcm(tile, 512), so every shard's slice of
+    columns is a whole number of tiles (and of W-column groups), and the
+    fp32 rows are zero-padded to the same length, so each shard's rows are
+    the same slice; the small-batch padding is single-device only."""
     feats = np.asarray(features, np.float32)
     n, f = feats.shape
     if norms is None:
@@ -442,7 +467,10 @@ def build_certified_layout(
     if config.scan not in ("v2", "v3"):
         raise ValueError(f"unknown scan {config.scan!r} (use 'v3' or 'v2')")
 
-    tc = min(config.catalog_tile, _round_up(n, 128))
+    if n_shards > 1:
+        tc = min(config.catalog_tile, 128 * max(1, -(-n // (128 * n_shards))))
+    else:
+        tc = min(config.catalog_tile, _round_up(n, 128))
     if config.scan == "v3":
         nw = max(1, config.scan_bins // 128) if config.scan_bins else 1
         if config.scan_bins and config.scan_bins != 128 * nw:
@@ -458,15 +486,20 @@ def build_certified_layout(
             "scan bin count reduced to W=%d (must divide the catalog "
             "tile's %d lane slices)", 128 * nw, tc // 128,
         )
-    # the JAX package pads the catalog to its large small-batch tile too;
-    # the same padding keeps the two scans' pad columns identical
-    if n >= 65536:
-        tc_small = max(tc, min(65536, _round_up(n, 128)))
-        if tc_small % tc:
-            tc_small = tc
+    if n_shards > 1:
+        np_pad = _round_up(n, n_shards * math.lcm(tc, 512))
+        rows = np_pad
     else:
-        tc_small = tc
-    np_pad = _round_up(n, max(tc, tc_small))
+        # the JAX package pads the catalog to its large small-batch tile
+        # too; the same padding keeps the two scans' pad columns identical
+        if n >= 65536:
+            tc_small = max(tc, min(65536, _round_up(n, 128)))
+            if tc_small % tc:
+                tc_small = tc
+        else:
+            tc_small = tc
+        np_pad = _round_up(n, max(tc, tc_small))
+        rows = n
 
     unit_rows = feats / np.maximum(norms, 1e-30)[:, None]
     hi, lo = split_bf16x2_plain(torch.from_numpy(unit_rows))
@@ -475,6 +508,9 @@ def build_certified_layout(
     ft[f:, :n] = lo.float().numpy().T
     nrm_row = np.zeros((1, np_pad), np.float32)
     nrm_row[0, :n] = norms
+    if rows > n:
+        feats = np.concatenate([feats, np.zeros((rows - n, f), np.float32)])
+        norms = np.concatenate([norms, np.zeros(rows - n, np.float32)])
 
     nz = norms[norms > 0.0]
     rn_min = float(nz.min()) if nz.size else float(np.finfo(np.float32).max)
@@ -604,8 +640,8 @@ class CertifiedRetriever:
         config: Optional[RetrievalConfig],
         device: torch.device,
     ) -> "CertifiedRetriever":
-        """A retriever over a prebuilt numpy layout (from this package or
-        the JAX package)."""
+        """A retriever over a prebuilt layout: numpy (from this package or
+        the JAX package), or a `DeviceLayout` already on `device`."""
         self = cls.__new__(cls)
         self._setup(layout, num_items, feature_dim, config or RetrievalConfig(),
                     device)
@@ -626,7 +662,8 @@ class CertifiedRetriever:
             if layout.scan == "v3" and config.scan_escalate > layout.depth
             else 0
         )
-        self.layout = layout_to_device(layout, device)   # DeviceLayout
+        self.layout = (layout if isinstance(layout, DeviceLayout)
+                       else layout_to_device(layout, device))
         # certificate margin: configurable LOOSER than the proven bound
         # (more fallbacks, never unsound); tighter requests are clamped
         self._ceps = float(max(config.certify_eps, BF16X2_EPS))
@@ -646,6 +683,11 @@ class CertifiedRetriever:
                 "large-k retrievals on the certified tier.",
                 k, self.layout.depth * self.layout.w,
             )
+
+    def _topc(self, k: int) -> int:
+        """Candidates the scan keeps per query for a top-k."""
+        return min(max(self.config.prefilter, k),
+                   self.layout.depth * self.layout.w)
 
     def _oracle(self, queries, k, excl):
         """Oracle-exact top-k over the real rows, scored by
@@ -667,15 +709,22 @@ class CertifiedRetriever:
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, F) queries -> (scores (B, k) fp32, rows (B, k) int64), on the
         retriever's device."""
+        return self.finish(self.start(queries, k, exclude_rows))
+
+    def start(self, queries, k: int, exclude_rows=None) -> "CertifiedBatch":
+        """A batch's work up to its certificate (split, scan, rerank),
+        issued on the device without reading anything back; `finish`
+        reads the failures and serves them.  A sharded catalog starts every
+        shard before it finishes any, so the shards of distinct cards
+        overlap."""
         queries, excl = query_inputs(queries, exclude_rows, self.device,
                                      self.feature_dim)
         dl = self.layout
         if k > dl.depth * dl.w:
             self._warn_large_k(k)
-            return self._oracle(queries, k, excl)
-        c = min(max(self.config.prefilter, k), dl.depth * dl.w)
-        eps = self.config.eps
-
+            return CertifiedBatch(queries, excl, k, None, None,
+                                  *self._oracle(queries, k, excl), None)
+        c = self._topc(k)
         qn = similarity.row_norms(queries)
         qunit = queries / qn.clamp_min(1e-30)[:, None]
         qh, ql = split_bf16x2(qunit)
@@ -683,14 +732,27 @@ class CertifiedRetriever:
         q2 = torch.cat([qh, ql, ql, qh], dim=1)
         if dl.scan == "v2":
             a_s, cand, cb = scan_v2(q2, qn, dl.ft, dl.nrm_row, excl,
-                                    self.num_items, w=dl.w, eps=eps, topc=c)
+                                    self.num_items, w=dl.w,
+                                    eps=self.config.eps, topc=c)
         else:
             a_s, cand, cb = scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth, topc=c,
                                     ncols=self.num_items)
         top_s, top_i, ok = rerank_certify(
             queries, qn, a_s, cand, cb, excl, dl, self.num_items,
-            k=k, eps=eps, ceps=self._ceps,
+            k=k, eps=self.config.eps, ceps=self._ceps,
         )
+        return CertifiedBatch(queries, excl, k, qn, q2, top_s, top_i, ok)
+
+    def finish(self, batch: "CertifiedBatch") -> Tuple[torch.Tensor, torch.Tensor]:
+        """The started batch's answer: its failures read on the host (the
+        batch's sync), the first <= 32 rescanned at the escalation depth
+        (v3), and what still fails served by the oracle."""
+        top_s, top_i, ok = batch.top_s, batch.top_i, batch.ok
+        if ok is None:                  # k beyond the scan: the oracle's
+            return top_s, top_i
+        queries, excl, k, qn, q2 = (batch.queries, batch.excl, batch.k,
+                                    batch.qn, batch.q2)
+        dl, eps, c = self.layout, self.config.eps, self._topc(k)
         fail = torch.nonzero(~ok)[:, 0]           # the batch's host sync
         if self._esc and fail.numel():
             # rescan the first <= 32 failing queries once at the deeper

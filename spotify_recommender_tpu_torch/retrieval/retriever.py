@@ -26,6 +26,12 @@ versions on the CPU.
   top-k kernel over prenormalized fp32 rows (ops/fused_topk.FusedRetriever),
   the JAX package's backend of the same name.
 - "oracle" (`RetrievalConfig(use_pallas=False)`): the plain exact oracle.
+- "sharded" (a `mesh` whose "catalog" axis is > 1, core/mesh.py): the
+  catalog row-sharded over the mesh (parallel/sharding.ShardedCatalog), as
+  the JAX Retriever builds it: the certified tier per shard where the
+  config is the exact fp32 one on CUDA devices (the JAX package's "on a
+  TPU"), kernel 3 per shard for the other configs on CUDA, the oracle per
+  shard on the CPU or under `use_pallas=False`.
 
 There is no silent fallback: a CUDA device without a card, a missing
 nvcc or a failed kernel raises.
@@ -49,6 +55,7 @@ from spotify_recommender_tpu_torch.ops.fused_topk import (
     CertifiedRetriever,
     FusedRetriever,
 )
+from spotify_recommender_tpu_torch.parallel.sharding import ShardedCatalog
 from spotify_recommender_tpu_torch.retrieval.index import CatalogIndex
 
 log = get_logger(__name__)
@@ -78,11 +85,6 @@ class Retriever:
         if len(catalog) == 0:
             raise ValueError("Empty song database")
         config = config or RetrievalConfig()
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh (sharded catalog) is not ported yet "
-                "(ROADMAP queue 1, multi-GPU)"
-            )
         self.catalog = catalog
         self.config = config
         self.device = resolve_device(device)
@@ -94,7 +96,19 @@ class Retriever:
         self.fused: Optional[FusedRetriever] = None
         # the bin scan alone on the "approx" backend
         self.approx: Optional[ApproxRetriever] = None
-        if config.use_pallas and config.dtype.startswith("bfloat16"):
+        # the row-sharded catalog on the "sharded" backend
+        self.sharded: Optional[ShardedCatalog] = None
+        if mesh is not None and mesh.shape.get("catalog", 1) > 1:
+            self._backend = "sharded"
+            on_cuda = mesh.devices.flat[0].type == "cuda"
+            self.sharded = ShardedCatalog(
+                catalog.features, catalog.norms, mesh,
+                use_certified=(config.use_pallas and on_cuda
+                               and config.exact_scores
+                               and config.dtype == "float32"),
+                use_pallas=config.use_pallas and on_cuda, config=config,
+            )
+        elif config.use_pallas and config.dtype.startswith("bfloat16"):
             self._backend = "approx"
             self.approx = ApproxRetriever(
                 catalog.features, catalog.norms, config, self.device
@@ -117,8 +131,9 @@ class Retriever:
                 np.asarray(catalog.norms, np.float32)
             ).to(self.device)
         log.info(
-            "retriever ready: %d items, backend=%s, device=%s",
+            "retriever ready: %d items, backend=%s, device=%s, mesh=%s",
             len(catalog), self._backend, self.device,
+            mesh.shape if mesh is not None else None,
         )
 
     @property
@@ -139,6 +154,8 @@ class Retriever:
         -1 disables masking for that query.
         """
         k = self.config.top_k if k is None else k
+        if self._backend == "sharded":
+            return self.sharded.retrieve(queries, k, exclude_rows)
         if self._backend == "certified":
             return self.certified(queries, k, exclude_rows)
         if self._backend == "approx":

@@ -22,7 +22,8 @@ from spotify_recommender_tpu.ops.pallas.fused_topk import (
     build_certified_layout as jax_layout,
 )
 from spotify_recommender_tpu.ops.similarity import exact_topk
-from spotify_recommender_tpu_torch.core.config import RetrievalConfig
+from spotify_recommender_tpu_torch.core.config import MeshConfig, RetrievalConfig
+from spotify_recommender_tpu_torch.core.mesh import make_mesh
 from spotify_recommender_tpu_torch.data.catalog import Catalog
 from spotify_recommender_tpu_torch.ops import similarity as tsim
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import scan_v3
@@ -365,8 +366,18 @@ class TestRetriever:
             # ported since: bf16 storage selects the approx tier
             assert Retriever(catalog, device=CPU, **kwargs).backend == "approx"
             return
-        with pytest.raises(NotImplementedError, match=match):
+        # ported since: a mesh row-shards the catalog (parallel/sharding.py);
+        # an object that is not a mesh still raises
+        with pytest.raises(AttributeError, match="shape"):
             Retriever(catalog, device=CPU, **kwargs)
+        mesh = make_mesh(MeshConfig(catalog=2), devices=[CPU] * 2)
+        r = Retriever(catalog, None, CPU, mesh=mesh)
+        assert r.backend == "sharded"
+        rows = np.arange(0, 2500, 500)
+        s, i = r.retrieve_host(catalog.features[rows], k=10, exclude_rows=rows)
+        assert_matches_oracle(s, i, *oracle(catalog.features[rows],
+                                            catalog.features, catalog.norms,
+                                            10, excl=rows))
 
     def test_cuda_without_a_card_raises(self, catalog):
         if torch.cuda.is_available():

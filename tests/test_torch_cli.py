@@ -174,11 +174,85 @@ def test_retrieve_equals_the_jax_cli(monkeypatch, capsys, dirs, streaming):
 
 
 def test_retrieve_mesh_exits_1(monkeypatch, capsys, dirs):
+    """`retrieve --mesh` is ported: under --device cpu the catalog is
+    row-sharded over that many CPU shards and the answer is the JAX CLI's
+    on its 8-device CPU mesh (it exited 1 before the sharded path was
+    ported).  Without a card, the default --device cuda raises."""
     _retrieve_inputs(monkeypatch, capsys, dirs)
+    for mesh in ("catalog=8", "data=2,catalog=3"):
+        argv = ["retrieve", "q.npz", "-k", "6", "--mesh", mesh]
+        (jrc, jout), (trc, tout) = _both(monkeypatch, capsys, dirs, argv)
+        assert jrc == trc == 0
+        jrows, jscores, jids = _json_rows(jout)
+        trows, tscores, tids = _json_rows(tout)
+        assert len(trows) == 3 and trows == jrows and tids == jids
+        np.testing.assert_allclose(tscores, jscores, rtol=0, atol=1.5e-6)
     monkeypatch.chdir(dirs[2])
-    assert tcli.main(["--device", "cpu", "retrieve", "q.npz", "--mesh",
-                      "catalog=8"]) == 1
-    assert "not ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="axis must be"):
+        tcli.main(["--device", "cpu", "retrieve", "q.npz", "--mesh", "rows=2"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tcli.main(["retrieve", "q.npz", "--mesh", "catalog=2"])
+
+
+@pytest.mark.parametrize("flags", [["--format", "dir"],
+                                   ["--streaming", "--chunk-rows", "37"]])
+def test_preprocess_dir_equals_the_jax_cli(monkeypatch, capsys, dirs, flags):
+    """`preprocess --format dir` and `--streaming` write the JAX CLI's
+    memory-mapped directory (the port parses natively, the JAX package
+    here in Python) and print the same lines."""
+    csv = str(dirs[0])
+    argv = ["preprocess", csv, "-o", "songs.npz", *flags]
+    (jrc, jout), (trc, tout) = _both(monkeypatch, capsys, dirs, argv)
+    assert jrc == trc == 0 and jout == tout
+    assert "Catalog saved to: songs\n" in tout
+    _, jdir, tdir = dirs
+    meta = json.loads((tdir / "songs" / "meta.json").read_text())
+    assert meta == json.loads((jdir / "songs" / "meta.json").read_text())
+    assert meta["layout"] == "dir-v1"
+    for name in ("features", "norms", "genre_ids", "track_ids", "track_names",
+                 "artists", "min_vals", "max_vals"):
+        a, b = np.load(tdir / "songs" / f"{name}.npy"), np.load(
+            jdir / "songs" / f"{name}.npy")
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    # and the directory serves `recommend` as the npz does
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs,
+        ["recommend", "--id", "id00010", "-n", "4", "--catalog", "songs"])
+    assert jrc == trc == 0
+    _assert_same_stdout(jout, tout)
+
+
+def test_preprocess_sharded_and_retrieve_on_it(monkeypatch, capsys, dirs):
+    """`preprocess --format sharded` then `retrieve --catalog <dir>`, in
+    both CLIs (the JAX one on its orbax artifact and 8-device CPU mesh,
+    the port on its per-shard .npy artifact): equal rows and track ids."""
+    csv = str(dirs[0])
+    _retrieve_inputs(monkeypatch, capsys, dirs)
+    (jrc, jout), (trc, tout) = _both(
+        monkeypatch, capsys, dirs,
+        ["preprocess", csv, "-o", "sharded", "--format", "sharded"])
+    assert jrc == trc == 0 and jout == tout
+    _, jdir, tdir = dirs
+    assert json.loads((tdir / "sharded" / "meta.json").read_text())[
+        "layout"] == "npy-shards-v1"
+    for mesh in (["--mesh", "catalog=2"], []):
+        argv = ["retrieve", "q.npz", "-k", "5", "--catalog", "sharded", *mesh]
+        (jrc, jout), (trc, tout) = _both(monkeypatch, capsys, dirs, argv)
+        assert jrc == trc == 0
+        jrows, jscores, jids = _json_rows(jout)
+        trows, tscores, tids = _json_rows(tout)
+        assert len(trows) == 3 and trows == jrows and tids == jids
+        np.testing.assert_allclose(tscores, jscores, rtol=0, atol=1.5e-6)
+    monkeypatch.chdir(tdir)
+    assert tcli.main(["--device", "cpu", "retrieve", "q.npz", "--catalog",
+                      "sharded", "-o", "s.npz"]) == 0
+    assert tcli.main(["--device", "cpu", "retrieve", "q.npz", "-o",
+                      "n.npz"]) == 0
+    with np.load("s.npz") as a, np.load("n.npz") as b:
+        np.testing.assert_array_equal(a["rows"], b["rows"])
+        np.testing.assert_array_equal(a["scores"], b["scores"])
+        np.testing.assert_array_equal(a["track_ids"], b["track_ids"])
 
 
 def test_retrieve_streams_a_dir_catalog(monkeypatch, capsys, dirs):

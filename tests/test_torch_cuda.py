@@ -684,3 +684,64 @@ def test_two_tower_on_the_card_near_cpu(cuda, compute_dtype):
     res = two_tower.train(x, np.arange(4096) % 7, TwoTowerConfig(
         num_steps=20, compute_dtype=compute_dtype), device=cuda)
     assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
+
+
+# ---------------------------------------------------------- data layer, sharding
+
+
+def test_native_parser_builds_and_parses_on_the_card_host(cuda, tmp_path):
+    """The card's machine builds native/csv_parser.cpp with g++ (into a
+    fresh root, timed by chip_smoke.py phase 2) and its parse equals the
+    Python parse."""
+    from spotify_recommender_tpu_torch.data import csv_ingest, native_ingest
+
+    so = native_ingest.build(tmp_path)
+    assert so.exists() and so.parent.name == native_ingest.source_hash()
+    hdr = ("track_id,track_name,artists,danceability,energy,key,loudness,"
+           "mode,speechiness,acousticness,instrumentalness,liveness,valence,"
+           "tempo,track_genre")
+    lines = [f"t{i},Song {i},A,0.{i},0.5,C#,-{i},Minor,0.1,0.2,0.3,0.4,0.5,"
+             f"{90 + i},g{i % 3}" for i in range(50)] + ["short,row"]
+    nat = native_ingest.parse_csv_rows_native(hdr, lines)
+    py = csv_ingest.parse_csv_rows(hdr, lines)
+    assert nat.num_valid_rows == py.num_valid_rows == 50
+    assert list(nat.track_ids) == list(py.track_ids)
+    assert nat.genre_names == py.genre_names
+    np.testing.assert_array_equal(nat.raw_features, py.raw_features)
+
+
+@pytest.mark.parametrize("shards", [2, 3])
+@pytest.mark.parametrize("backend", ["certified", "pallas"])
+def test_sharded_backends_on_the_card_equal_single_card(cuda, backend, shards):
+    """S shards on the one card (a mesh over a repeated device): the
+    certified backend (kernels 2 and 1 per shard) bitwise the single-card
+    certified tier, kernel 3 per shard (exact fp32) its indices and
+    scores; launches counted per shard; exclusions at the shard borders."""
+    from spotify_recommender_tpu_torch.core.config import MeshConfig
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+    from spotify_recommender_tpu_torch.parallel.sharding import ShardedCatalog
+
+    rng = np.random.default_rng(shards)
+    n = 50_003
+    feats = rng.random((n, 12), dtype=np.float32)
+    norms = np.linalg.norm(feats, axis=1).astype(np.float32)
+    mesh = make_mesh(MeshConfig(catalog=shards), devices=[cuda] * shards)
+    sc = ShardedCatalog(feats, norms, mesh, use_certified=backend == "certified",
+                        use_pallas=backend == "pallas")
+    rows = rng.integers(0, n, 64)
+    border = [c * sc.n_local + o for c in range(1, shards) for o in (-1, 0)]
+    rows[:len(border)] = border
+    q = torch.from_numpy(feats[rows]).to(cuda)
+    excl = torch.from_numpy(rows).to(cuda)
+    split_bf16x2.launches = scan_v3.launches = fused_topk.launches = 0
+    s, i = sc.retrieve(q, 10, excl)
+    torch.cuda.synchronize()
+    if backend == "certified":
+        assert split_bf16x2.launches == shards and scan_v3.launches >= shards
+    else:
+        assert fused_topk.launches == shards
+    rs, ri = CertifiedRetriever(feats, norms, None, cuda)(q, 10, excl)
+    assert torch.equal(i, ri) and torch.equal(s, rs)
+    assert not bool((i == excl[:, None]).any())
+    s1, i1 = sc.retrieve(q[:1], 10, excl[:1])
+    assert torch.equal(i1, ri[:1])

@@ -48,6 +48,21 @@ _SCRIPT = textwrap.dedent("""
     params, cfg2 = two_tower.load_model(path)
     assert cfg2 == cfg and all(torch.equal(params[k], res.params[k])
                                for k in params)
+    # the sharded catalog over a CPU mesh, and the native parse (g++)
+    from spotify_recommender_tpu_torch.core.config import MeshConfig
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+    from spotify_recommender_tpu_torch.data import native_ingest
+    from spotify_recommender_tpu_torch.parallel.sharding import ShardedCatalog
+    mesh = make_mesh(MeshConfig(catalog=3), devices=["cpu"] * 3)
+    ss, si = ShardedCatalog(feats, None, mesh, use_certified=True).retrieve(
+        feats[:8], 10, np.arange(8))
+    assert torch.equal(si, ri)
+    hdr = ("track_id,track_name,artists,danceability,energy,key,loudness,"
+           "mode,speechiness,acousticness,instrumentalness,liveness,valence,"
+           "tempo,track_genre")
+    t = native_ingest.parse_csv_rows_native(
+        hdr, ["t1,S,A,0.5,0.6,C,-5,Major,0.1,0.2,0.3,0.4,0.5,120,rock"])
+    assert t.num_valid_rows == 1
     assert not any(name == "jax" or name.startswith(("jax.", "jaxlib"))
                    for name in sys.modules if sys.modules[name] is not None)
     print("OK")
@@ -99,6 +114,23 @@ TWO_TOWER = ["models/two_tower.py", "models/flax_msgpack.py", "cli.py",
 def test_two_tower_modules_are_checked_sources(rel):
     """The two-tower slice's modules are among the files the import checks
     walk, and import neither JAX nor flax, optax or msgpack."""
+    path = PKG / rel
+    assert path in SOURCES
+    assert not {n for n in imported_modules(path)
+                if n.split(".")[0] in FORBIDDEN}
+
+
+DATA_AND_SHARDING = ["data/native_ingest.py", "data/streaming.py",
+                     "data/sharded_catalog.py", "core/mesh.py",
+                     "parallel/sharding.py", "parallel/distributed.py",
+                     "retrieval/retriever.py"]
+
+
+@pytest.mark.parametrize("rel", DATA_AND_SHARDING)
+def test_data_and_sharding_modules_are_checked_sources(rel):
+    """The rest of the data layer and the sharded serving path are among
+    the files the import checks walk, and import none of the forbidden
+    names."""
     path = PKG / rel
     assert path in SOURCES
     assert not {n for n in imported_modules(path)
