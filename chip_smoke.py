@@ -105,6 +105,25 @@ its plain torch version on the card, runs the reference-style CLI on a
   CLI; kernels 1, 2 and 3 at a shard's shapes against their plain versions
   (the "*_sharded" entries; kernel 1's plain version in column chunks).
 
+- phase 21: the training half of sharding on a 4-cell mesh over the one
+  card, and the last modules: BASELINE config 4's 10,000,000 x 64 fp32
+  row-sharded embedding table (lookups of 1024 ids, a (1024, 50)
+  padded-ragged block and 65,536 ids bitwise the dense gather, with their
+  ms beside the byte bound; an out-of-range id raises; the backward
+  bitwise a dense index_add on the owners' rows); ALS at config 3 sharded
+  over `catalog=4`, replicated and `shard_tables`, against the single
+  device (per-iteration and Cholesky ms, peak memory), its `shard_tables`
+  item factors served by 4 certified shards bitwise the single card (the
+  "*_mf_sharded" entries); data-parallel SGD (config 3) and two-tower
+  (config 5) steps over `data=4` against the single device; the CLI's
+  `train-mf --mesh catalog=1 --shard-tables` and `train-two-tower --mesh
+  data=1,catalog=1`; `autotune.tune` at 1M x 1024 with its cache in the
+  phase's directory (each candidate's batch and kernel 1; the
+  "scan_v3_autotune" entry at the winner), the benchmark row reading it,
+  the `autotune` subcommand; `profiling.trace` of one certified batch;
+  `debug.nan_guard` at an injected NaN; `graft_entry.entry()` bitwise the
+  certified tier and `dryrun_multichip(4)` over [cuda:0] x 4.
+
 Kernel 1's entries scan the catalog's real columns (`ncols`, as the
 tiers pass it); their bounds count those columns.
 
@@ -127,6 +146,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -144,13 +164,18 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: torch sees no CUDA device")
 
-from spotify_recommender_tpu_torch import benchmark, cli  # noqa: E402
+from spotify_recommender_tpu_torch import (  # noqa: E402
+    benchmark,
+    cli,
+    graft_entry,
+)
 from spotify_recommender_tpu_torch.core.config import (  # noqa: E402
     MeshConfig,
     MFConfig,
     RetrievalConfig,
     TwoTowerConfig,
 )
+from spotify_recommender_tpu_torch.core import debug, profiling  # noqa: E402
 from spotify_recommender_tpu_torch.core.device import (  # noqa: E402
     device_info,
     nvidia_smi,
@@ -177,7 +202,7 @@ from spotify_recommender_tpu_torch.experiments import (  # noqa: E402
     kernel_r3,
 )
 from spotify_recommender_tpu_torch.models import mf, two_tower  # noqa: E402
-from spotify_recommender_tpu_torch.ops import similarity  # noqa: E402
+from spotify_recommender_tpu_torch.ops import autotune, similarity  # noqa: E402
 from spotify_recommender_tpu_torch.ops.cuda import (  # noqa: E402
     _build,
     ablation,
@@ -212,6 +237,9 @@ from spotify_recommender_tpu_torch.ops.fused_topk import (  # noqa: E402
     build_certified_layout,
     layout_to_device,
     prepare_and_call,
+)
+from spotify_recommender_tpu_torch.parallel.embedding import (  # noqa: E402
+    ShardedEmbeddingTable,
 )
 from spotify_recommender_tpu_torch.parallel.sharding import (  # noqa: E402
     ShardedCatalog,
@@ -1731,6 +1759,449 @@ def sharded_phase(kernels: dict, launches: dict, work: Path) -> None:
           f"{time.perf_counter() - t20:.1f} s")
 
 
+# ---------------------------------------------------------------- phase 21
+
+EMB_N, EMB_D = 10_000_000, 64   # BASELINE config 4's item table, fp32
+TUNE_N, TUNE_B = 1_000_000, 1024  # the autotuner's shape: the headline's
+
+
+def embedding_part(mesh4) -> str:
+    """Config 4's row-sharded table over `mesh4`: lookups bitwise the dense
+    gather, the range check, the backward against a dense index_add."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    dense = torch.rand((EMB_N, EMB_D), generator=gen, device=DEV)
+    table = ShardedEmbeddingTable(dense, mesh4)
+    check(len(table.shards) == SHARDS and all(
+        sh.data_ptr() == dense[c * (EMB_N // SHARDS)].data_ptr()
+        for c, sh in enumerate(table.shards)), "phase 21: shards are not views")
+    rng = np.random.default_rng(21)
+    block = rng.integers(0, EMB_N, (1024, 50))
+    lens = rng.integers(1, 51, 1024)
+    block[np.arange(50)[None, :] >= lens[:, None]] = 0     # padded-ragged
+    parts = []
+    for name, ids in (("1024", rng.integers(0, EMB_N, 1024)),
+                      ("1024x50", block),
+                      ("65536", rng.integers(0, EMB_N, 65536))):
+        ids = torch.from_numpy(ids).to(DEV)
+        out = table.lookup(ids)
+        check(torch.equal(out, dense[ids]),
+              f"phase 21: lookup of {name} ids is not the dense gather")
+        ms = sync_ms(lambda: table.lookup(ids, validate=False), 20)
+        ms_val = wall_ms(lambda: table.lookup(ids), 20)
+        dense_ms = sync_ms(lambda: dense[ids], 20)
+        nbytes = ids.numel() * ids.element_size() + out.numel() * 4
+        parts.append(f"{name}: {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s; "
+                     f"bound {nbytes / HBM_BYTES_PER_S * 1e3:.5f} ms by "
+                     f"bytes), with the range check {ms_val:.4f} ms, dense "
+                     f"gather {dense_ms:.4f} ms")
+    try:
+        table.lookup(torch.tensor([0, EMB_N], device=DEV))
+        check(False, "phase 21: an out-of-range id did not raise")
+    except IndexError:
+        pass
+    # the backward: the shards' gradients against one dense index_add
+    ids = torch.randperm(EMB_N, generator=gen, device=DEV)[:65536]
+    up = torch.randn((ids.numel(), EMB_D), generator=gen, device=DEV)
+    for sh in table.shards:
+        sh.requires_grad_(True)
+    bwd_ms = []
+    for _ in range(2):                    # the first call allocates
+        for sh in table.shards:
+            sh.grad = None
+        t0 = time.perf_counter()
+        (table.lookup(ids, validate=False) * up).sum().backward()
+        torch.cuda.synchronize()
+        bwd_ms.append((time.perf_counter() - t0) * 1e3)
+    want = torch.zeros_like(dense).index_add_(0, ids, up)
+    rows = EMB_N // SHARDS
+    check(all(torch.equal(sh.grad, want[c * rows:(c + 1) * rows])
+              for c, sh in enumerate(table.shards)),
+          "phase 21: lookup gradient differs from the dense index_add")
+    del table, dense, want, up
+    torch.cuda.empty_cache()
+    return (f"table {EMB_N} x {EMB_D} fp32 over {SHARDS} shards on one card: "
+            f"lookups bitwise the dense gather, " + "; ".join(parts)
+            + f"; out-of-range id raises IndexError; backward of 65536 ids "
+            f"{bwd_ms[1]:.2f} ms ({bwd_ms[0]:.1f} the first call), bitwise a "
+            "dense index_add on the owners' rows")
+
+
+def als_part(kernels: dict, launches: dict, mesh4) -> Tuple[str, dict]:
+    """Sharded ALS at config 3 on `mesh4` against the single-device run,
+    then the shard_tables item factors through the sharded certified tier
+    (the "*_mf_sharded" entries)."""
+    data = als_scale_1m.prepare(MF_USERS, MF_ITEMS, MF_PER_USER)
+    train, item_view = data["train"], data["item_view"]
+    cfg = MFConfig(embedding_dim=64, num_iterations=3, reg=0.05, alpha=10.0)
+    runs = {}
+    for name, kw in (("single", {"device": DEV}),
+                     ("replicated", {"mesh": mesh4}),
+                     ("shard_tables", {"mesh": mesh4, "shard_tables": True})):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stats = {}
+        u, i = mf.train_als(train, cfg, item_view=item_view, stats=stats, **kw)
+        per_iter = [a + b for a, b in zip(stats["user_ms"], stats["item_ms"])]
+        runs[name] = (u, i, statistics.median(per_iter),
+                      torch.cuda.max_memory_allocated() / 2**30,
+                      statistics.median(stats["chol_ms"]))
+    su, si = runs["single"][:2]
+    errs = {}
+    for name, tol in (("replicated", 1e-5), ("shard_tables", 1e-4)):
+        u, i = runs[name][:2]
+        check(u.shape == su.shape and i.shape == si.shape,
+              f"phase 21: {name} factor shapes {u.shape} {i.shape}")
+        errs[name] = float(max(np.abs(u - su).max(), np.abs(i - si).max()))
+        check(errs[name] <= tol, f"phase 21: {name} ALS differs from the "
+              f"single device by {errs[name]} (> {tol})")
+
+    # the shard_tables item factors, served by the sharded certified tier
+    users, items = runs["shard_tables"][:2]
+    k, b = 10, 1024
+    q = torch.from_numpy(users[np.random.default_rng(21).choice(
+        len(users), b, replace=False)]).to(DEV)
+    single = CertifiedRetriever(items, None, None, DEV)
+    ref_s, ref_i = single(q, k)
+    sc = ShardedCatalog(items, None, mesh4, use_certified=True)
+    split_bf16x2.launches = scan_v3.launches = 0
+    s, i = sc.retrieve(q, k)
+    torch.cuda.synchronize()
+    launches["split_bf16x2_mf_sharded"] = split_bf16x2.launches
+    launches["scan_v3_mf_sharded"] = scan_v3.launches
+    check(split_bf16x2.launches >= SHARDS and scan_v3.launches >= SHARDS,
+          f"phase 21: sharded MF batch launches split {split_bf16x2.launches}"
+          f", scan {scan_v3.launches}")
+    check(torch.equal(i, ref_i) and torch.equal(s, ref_s),
+          "phase 21: the sharded tier's answers over the sharded-ALS items "
+          f"differ from the single card's in {(i != ref_i).sum().item()} "
+          "indices")
+    t_sh = wall_ms(lambda: sc.retrieve(q, k), 10)
+    t_single = wall_ms(lambda: single(q, k), 10)
+
+    # kernels 2 and 1 at shard 0's shapes against their plain versions
+    shard0 = sc._shards[(0, str(DEV))]
+    dl = shard0.layout
+    qunit = q / similarity.row_norms(q).clamp_min(1e-30)[:, None]
+    hi, lo = split_bf16x2(qunit)
+    phi, plo = split_bf16x2_plain(qunit)
+    check(torch.equal(hi.view(torch.int16), phi.view(torch.int16))
+          and torch.equal(lo.view(torch.int16), plo.view(torch.int16)),
+          "phase 21: split kernel differs from plain")
+    kernels["split_bf16x2_mf_sharded"] = dict(
+        source=f"{CSRC}/split_bf16x2.cu", replaces=f"{PALLAS}:237",
+        max_abs_err=0.0, ms=sync_ms(lambda: split_bf16x2(qunit), 50),
+        plain_ms=sync_ms(lambda: split_bf16x2_plain(qunit), 50),
+        **bound(qunit.numel(), "fp32", qunit, hi, lo), library_ms=None,
+    )
+    q2 = torch.cat([hi, lo, lo, hi], dim=1)
+    c_top = min(max(RetrievalConfig().prefilter, k), dl.depth * dl.w)
+    n0 = shard0.num_items
+    err, _, (kv, ki, kb) = compare_scan(q2, dl.ft, dl.depth, c_top, w=dl.w,
+                                        ncols=n0)
+    real = dl.ft[:, :n0]
+    kernels["scan_v3_mf_sharded"] = dict(
+        source=f"{CSRC}/scan_v3.cu", replaces=f"{PALLAS}:1069",
+        max_abs_err=err,
+        ms=sync_ms(lambda: scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth,
+                                   topc=c_top, ncols=n0), 20),
+        plain_ms=sync_ms(lambda: scan_v3_plain(q2, dl.ft, w=dl.w,
+                                               depth=dl.depth, topc=c_top,
+                                               ncols=n0), 3),
+        **bound(dot_flops(q2, real, q2.shape[1]), "bf16", q2, real, kv, ki,
+                kb),
+        library_ms=None,
+    )
+    per = {name: r[2] for name, r in runs.items()}
+    peak = {name: r[3] for name, r in runs.items()}
+    chol = {name: r[4] for name, r in runs.items()}
+    line = (f"sharded ALS (config 3, d 64, 3 iterations, catalog={SHARDS} on "
+            f"one card): ms per iteration (Cholesky inside) single "
+            f"{per['single']:.2f} ({chol['single']:.2f}), replicated "
+            f"{per['replicated']:.2f} ({chol['replicated']:.2f}), "
+            f"shard_tables {per['shard_tables']:.2f} "
+            f"({chol['shard_tables']:.2f}); peak GiB {peak['single']:.2f} / "
+            f"{peak['replicated']:.2f} / {peak['shard_tables']:.2f}; factors "
+            f"vs single: replicated {errs['replicated']:.3g}, shard_tables "
+            f"{errs['shard_tables']:.3g}; shard_tables items "
+            f"({MF_ITEMS} x 64) through {SHARDS} certified shards, {b} user "
+            f"queries k={k}: bitwise the single card, batch {t_sh:.3f} ms vs "
+            f"{t_single:.3f} ms, fallbacks {sc.fallbacks} / "
+            f"{single.fallbacks}, launches split "
+            f"{launches['split_bf16x2_mf_sharded']} scan "
+            f"{launches['scan_v3_mf_sharded']}")
+    del single, sc
+    torch.cuda.empty_cache()
+    return line, {"train": train, "item_view": item_view}
+
+
+def dp_part(data: dict, catalog_path: str, work: Path) -> str:
+    """Data-parallel SGD (config 3) and two-tower steps (config 5) on a
+    data=4 mesh over the one card, against the single-device runs; then the
+    CLI's mesh options on the card."""
+    dmesh = make_mesh(MeshConfig(data=SHARDS), devices=[DEV] * SHARDS)
+    train = data["train"]
+    sgd_cfg = MFConfig(embedding_dim=64, reg=0.05, alpha=10.0,
+                       learning_rate=0.01)
+    trace, ms = {}, {}
+    for name, kw in (("single", {"device": DEV}), ("dp", {"mesh": dmesh})):
+        mf.train_sgd(train, sgd_cfg, num_steps=2, **kw)     # warm-up
+        trace[name] = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mf.train_sgd(train, sgd_cfg, num_steps=200, losses=trace[name], **kw)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / 200
+    a, b = np.asarray(trace["dp"]), np.asarray(trace["single"])
+    sgd_gap = float(np.max(np.abs(a[:20] - b[:20]) / np.abs(b[:20])))
+    check(sgd_gap <= 1e-5, f"phase 21: DP SGD's first 20 losses differ from "
+          f"the single device's by {sgd_gap} (relative)")
+    check(np.mean(a[-20:]) < np.mean(a[:20]),
+          f"phase 21: DP SGD loss did not fall: {a[:3]} ... {a[-3:]}")
+
+    # the first step on the same pairs: its gradients (what data
+    # parallelism must preserve; Adam's first step divides each by its own
+    # magnitude + 1e-8, so a coordinate whose gradient is near 1e-8 turns
+    # rounding into a step of up to lr, and the parameters are reported)
+    cat5 = Catalog.load(catalog_path)
+    cfg = TwoTowerConfig()
+    first = {}
+    for name, mesh in (("single", None), ("dp", dmesh)):
+        model = two_tower.make_model(two_tower.init_params(
+            cfg, cat5.features.shape[1], torch.Generator().manual_seed(0)),
+            cfg, DEV)
+        opt = two_tower.make_optimizer(model, cfg)
+        q, i = two_tower.same_genre_pairs(cat5.features, cat5.genre_ids,
+                                          cfg.batch_size,
+                                          np.random.default_rng(0))
+        loss = two_tower.train_step(model, opt, torch.from_numpy(q).to(DEV),
+                                    torch.from_numpy(i).to(DEV),
+                                    cfg.temperature, mesh)
+        first[name] = (float(loss), dict(model.named_parameters()))
+    g_gap = max((first["dp"][1][n].grad - p.grad).abs().max().item()
+                for n, p in first["single"][1].items())
+    p_gap = max((first["dp"][1][n] - p).abs().max().item()
+                for n, p in first["single"][1].items())
+    f_gap = abs(first["dp"][0] - first["single"][0])
+    check(g_gap <= 1e-6 and f_gap <= 1e-6, f"phase 21: DP two-tower first "
+          f"step: gradients differ by {g_gap}, losses by {f_gap}")
+    del first, model, opt
+    cfg = TwoTowerConfig(num_steps=200)
+    tt = {}
+    for name, kw in (("single", {"device": DEV}), ("dp", {"mesh": dmesh})):
+        st = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        two_tower.train(cat5.features, cat5.genre_ids, cfg, stats=st, **kw)
+        tt[name] = (st, (time.perf_counter() - t0) * 1e3 / 200)
+    gaps = np.abs(np.asarray(tt["dp"][0]["loss"])
+                  - np.asarray(tt["single"][0]["loss"]))
+    l20, l_gap = float(gaps[:20].max()), float(gaps.max())
+    # Adam amplifies the slices' rounding from step to step (200 steps:
+    # 2.8e-4 apart on the CPU, 3.3e-3 on the card): the first 20 losses
+    # within 1e-5, the last 20 steps' means within 1e-2
+    tail = abs(np.mean(tt["dp"][0]["loss"][-20:])
+               - np.mean(tt["single"][0]["loss"][-20:]))
+    check(l20 <= 1e-5 and tail <= 1e-2, f"phase 21: DP two-tower losses "
+          f"differ by {l20} (first 20), the last 20 steps' means by {tail}")
+    losses = tt["dp"][0]["loss"]
+    check(losses[-1] < losses[0], f"phase 21: DP two-tower loss did not fall")
+
+    # the CLI's mesh options on the card
+    user, item, count = als_scale_1m.make_clustered(5000, 2000, 20)
+    inter = work / "inter21.csv"
+    np.savetxt(inter, np.stack([user, item, count.astype(np.int64)], 1),
+               fmt="%d", delimiter=",", header="user_id,item_id,count",
+               comments="")
+    t0 = time.perf_counter()
+    out = run_cli(["--device", "cuda", "train-mf", str(inter), "-o",
+                   str(work / "mf21.npz"), "--iterations", "3", "--mesh",
+                   "catalog=1", "--shard-tables"])
+    check("recall@10=" in out, f"train-mf --shard-tables: {out!r}")
+    out += run_cli(["--device", "cuda", "train-two-tower", "--catalog",
+                    catalog_path, "-o", str(work / "tt21"), "--steps", "20",
+                    "--mesh", "data=1,catalog=1"])
+    check("two-tower trained" in out, f"train-two-tower --mesh: {out!r}")
+    cli_s = time.perf_counter() - t0
+    mean = statistics.mean
+    return (f"DP SGD (config 3, lr 0.01, batch 8192 = {SHARDS} x 2048, 200 "
+            f"steps): {ms['dp']:.2f} ms per step vs single {ms['single']:.2f};"
+            f" first 20 losses within {sgd_gap:.3g} (relative) of the single "
+            f"device's, loss {a[0]:.3f} -> {a[-1]:.3f}; DP two-tower (config "
+            f"5, batch 1024 = {SHARDS} x 256, 200 steps): first step's "
+            f"gradients within {g_gap:.3g} (parameters {p_gap:.3g}), losses "
+            f"within {l20:.3g} (first 20) and {l_gap:.3g} (200; the last 20 "
+            f"steps' means {tail:.3g}), "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, ms per step (wall) "
+            f"{tt['dp'][1]:.2f} vs single {tt['single'][1]:.2f} (device "
+            f"{mean(tt['dp'][0]['step_ms'][1:]):.2f} vs "
+            f"{mean(tt['single'][0]['step_ms'][1:]):.2f}, host pairs "
+            f"{mean(tt['dp'][0]['pairs_ms']):.2f}); CLI train-mf --mesh "
+            f"catalog=1 --shard-tables and train-two-tower --mesh "
+            f"data=1,catalog=1 (20 steps) {cli_s:.1f} s")
+
+
+def autotune_part(kernels: dict, launches: dict, work: Path) -> str:
+    """`autotune.tune` at 1M x 1024 with the cache in the phase's work
+    directory, each candidate's kernel 1, the benchmark reading the cache,
+    the `autotune` subcommand, a profiler trace, `nan_guard`, and the graft
+    entry points."""
+    n, b, f, k = TUNE_N, TUNE_B, 12, 10
+    cache = work / "autotune.json"
+    os.environ["SRT_AUTOTUNE_CACHE"] = str(cache)
+    try:
+        split_bf16x2.launches = scan_v3.launches = 0
+        t0 = time.perf_counter()
+        res = autotune.tune(n=n, b=b, f=f, k=k, device=DEV)
+        tune_s = time.perf_counter() - t0
+        launches["scan_v3_autotune"] = scan_v3.launches
+        check(scan_v3.launches > 0 and split_bf16x2.launches > 0,
+              "phase 21: autotune launched no kernel")
+        check(not res.failed and res.saved and cache.exists(),
+              f"phase 21: autotune failures {res.failed}, saved {res.saved}")
+        row = benchmark.run_benchmark(num_items=n, num_queries=b,
+                                      feature_dim=f, k=k, backend="certified",
+                                      device=DEV, verify_queries=64)
+        d = row.details
+        win = res.config
+        check(d["autotuned"] and (d["scan_depth"], d["scan_escalate"],
+                                  d["scan_bins"], d["catalog_tile"]) == (
+            win.scan_depth, win.scan_escalate, win.scan_bins,
+            win.catalog_tile), f"phase 21: the benchmark ran {d}, the cache "
+              f"holds {win}")
+        paths = [str(Path(__file__).resolve().parent),
+                 os.environ.get("PYTHONPATH", "")]
+        env = {**os.environ, "SRT_AUTOTUNE_CACHE": str(work / "at_cli.json"),
+               "PYTHONPATH": os.pathsep.join(p for p in paths if p)}
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "spotify_recommender_tpu_torch", "autotune",
+             "--items", str(n), "--queries", str(b)],
+            capture_output=True, text=True, env=env, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(out.returncode == 0 and "autotuned n=1000000" in out.stdout
+              and (work / "at_cli.json").exists(),
+              f"phase 21: autotune subcommand: {out.stdout[-500:]} "
+              f"{out.stderr[-500:]}")
+    finally:
+        os.environ.pop("SRT_AUTOTUNE_CACHE")
+
+    # each candidate's kernel 1 at its (W, depth), on the tune's inputs
+    feats, norms, queries, q_rows = benchmark._make_inputs(n, b, f)
+    q = torch.from_numpy(queries).to(DEV)
+    q2 = split_queries(q)
+    per_cand, layouts = [], {}
+    for cand in res.candidates:
+        cfg = RetrievalConfig(**{nm: cand[nm] for nm in autotune._TUNED})
+        key = (cand["scan_bins"], cand["catalog_tile"])
+        if key not in layouts:
+            layouts[key] = layout_to_device(
+                build_certified_layout(feats, norms, cfg), DEV)
+        dl, depth = layouts[key], cand["scan_depth"]
+        c_top = min(max(cfg.prefilter, k), depth * dl.w)
+        k1 = sync_ms(lambda: scan_v3(q2, dl.ft, w=dl.w, depth=depth,
+                                     topc=c_top, ncols=n), 10)
+        per_cand.append(
+            f"d{depth}/e{cand['scan_escalate']}/W{dl.w}/"
+            f"tq{cand['query_tile']}/tc{cand['catalog_tile']}: batch "
+            f"{cand['ms']:.3f} ms (bitwise the oracle), kernel 1 {k1:.3f} ms")
+    dl = layout_to_device(build_certified_layout(feats, norms, win), DEV)
+    c_top = min(max(win.prefilter, k), dl.depth * dl.w)
+    err, _, (kv, ki, kb) = compare_scan(q2, dl.ft, dl.depth, c_top, w=dl.w,
+                                        ncols=n)
+    real = dl.ft[:, :n]
+    kernels["scan_v3_autotune"] = dict(
+        source=f"{CSRC}/scan_v3.cu", replaces=f"{PALLAS}:1069",
+        max_abs_err=err,
+        ms=sync_ms(lambda: scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth,
+                                   topc=c_top, ncols=n), 10),
+        plain_ms=sync_ms(lambda: scan_v3_plain(
+            q2, dl.ft, w=dl.w, depth=dl.depth, topc=c_top, ncols=n), 1),
+        **bound(dot_flops(q2, real, q2.shape[1]), "bf16", q2, real, kv, ki,
+                kb),
+        library_ms=None,
+    )
+    del layouts, kv, ki, kb, real
+
+    # a profiler trace of one certified batch, with its annotate span
+    excl = torch.from_numpy(q_rows).long().to(DEV)
+    cr = CertifiedRetriever(feats, norms, win, DEV)
+    cr(q, k, excl)
+    tdir = work / "trace21"
+    with profiling.trace(str(tdir)) as prof:
+        with profiling.annotate("certified_batch"):
+            cr(q, k, excl)
+    files = list(tdir.glob("*.pt.trace.json"))
+    events = (json.loads(files[0].read_text())["traceEvents"]
+              if len(files) == 1 else [])
+    spans = sum(e.get("name") == "certified_batch" for e in events)
+    file_k1 = sum(e.get("cat") == "kernel" and "scan_kernel" in e.get("name", "")
+                  for e in events)
+    prof_k1 = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                  and "scan_kernel" in e.key for e in prof.key_averages())
+    # the span is the contract; the kernels' events are reported (CUPTI
+    # decides whether a profiler run sees them)
+    check(spans > 0, f"phase 21: trace files {files}: {spans} "
+          f"certified_batch spans, {file_k1} kernel-1 events; the "
+          f"profiler's own record {prof_k1} kernel-1 entries")
+    t_med, _ = profiling.timed(cr, q, k, excl, iters=10)
+    # nan_guard raises at an injected NaN on the card
+    x = torch.tensor([1.0, 0.0], device=DEV)
+    try:
+        with debug.nan_guard():
+            (x * 2).sum()
+            x / x
+        check(False, "phase 21: nan_guard did not raise")
+    except FloatingPointError:
+        pass
+
+    # the graft entry points on the card
+    split_bf16x2.launches = scan_v3.launches = 0
+    fn, args = graft_entry.entry(DEV)
+    gs, gi = fn(*args)
+    check(scan_v3.launches > 0 and split_bf16x2.launches > 0,
+          "phase 21: entry() launched no kernel")
+    rs, ri = CertifiedRetriever(
+        args[3].cpu().numpy(), None, RetrievalConfig(scan_bins=256,
+                                                     prefilter=32), DEV)(
+        args[0], 10, args[6])
+    check(torch.equal(gi, ri) and torch.equal(gs, rs),
+          "phase 21: entry() differs from the certified tier")
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(SHARDS, DEV)
+    dry_s = time.perf_counter() - t0
+    return (f"autotune at {n} x {b}: {len(res.candidates)} candidates in "
+            f"{tune_s:.1f} s (" + "; ".join(per_cand) + f"), winner "
+            f"d{win.scan_depth}/e{win.scan_escalate}/W{win.scan_bins}/"
+            f"tc{win.catalog_tile} {res.ms:.3f} ms, cache in the phase's "
+            f"directory; benchmark row read it (autotuned, "
+            f"{d['batch_latency_ms']} ms, {row.value} q/s); autotune "
+            f"subcommand {cli_s:.1f} s; profiling.trace of one batch: "
+            f"{files[0].stat().st_size} bytes, {len(events)} events, {spans} "
+            f"span(s), {file_k1} kernel-1 events in the file ({prof_k1} in "
+            f"the profiler's record), "
+            f"timed {t_med * 1e3:.3f} ms; nan_guard raised at the NaN; "
+            f"graft entry() bitwise the certified tier, "
+            f"dryrun_multichip({SHARDS}) over [cuda:0] x {SHARDS} "
+            f"{dry_s:.1f} s")
+
+
+def training_phase(kernels: dict, launches: dict, work: Path,
+                   catalog_path: str) -> None:
+    """Phase 21: config 4's row-sharded embedding table, sharded ALS and
+    the data-parallel steps on a 4-cell mesh over the one card, the
+    autotuner, profiling, debug and the graft entry points."""
+    t21 = time.perf_counter()
+    mesh4 = make_mesh(MeshConfig(catalog=SHARDS), devices=[DEV] * SHARDS)
+    emb = embedding_part(mesh4)
+    als, data = als_part(kernels, launches, mesh4)
+    dp = dp_part(data, catalog_path, work)
+    del data
+    torch.cuda.empty_cache()
+    rest = autotune_part(kernels, launches, work)
+    torch.cuda.empty_cache()
+    print(f"phase 21 sharded training and the last modules: {emb}; {als}; "
+          f"{dp}; {rest}; {time.perf_counter() - t21:.1f} s")
+
+
 def main() -> None:
     kernels = {}
 
@@ -2492,6 +2963,10 @@ def main() -> None:
     ingest_phase(Path(work.name), gxx_s)
     torch.cuda.empty_cache()
     sharded_phase(kernels, launches, Path(work.name))
+    torch.cuda.empty_cache()
+
+    # ---- 21. sharded training, autotune, profiling, debug, graft entry
+    training_phase(kernels, launches, Path(work.name), catalog)
     work.cleanup()
 
     low = {nm: (kv["ms"], kv["bound_ms"]) for nm, kv in kernels.items()

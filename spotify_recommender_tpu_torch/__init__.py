@@ -9,18 +9,26 @@ their plain torch versions on the CPU.
 
 Layer map:
 
-- ``core``      — config dataclasses, device resolution, logging
+- ``core``      — config dataclasses, device resolution, the mesh,
+  logging, timing, profiling (torch.profiler) and numerical debugging
 - ``data``      — feature schema, CSV ingest, normalization, catalog artifact
-- ``ops``       — torch oracle, top-k merges, the fused and certified tiers
+- ``ops``       — torch oracle, top-k merges, the fused and certified tiers,
+  the autotuner
     ``cuda``    — kernel wrappers and the nvcc build (sources in ``csrc/``)
 - ``retrieval`` — catalog index (id/name), Retriever API, streaming tier
-- ``models``    — matrix factorization: ALS, iALS++, SGD, leave-k-out
-  evaluation through the chunked MIPS top-k
+- ``models``    — matrix factorization (ALS, iALS++, SGD; sharded ALS and
+  data-parallel SGD over a mesh) and the two-tower model, evaluated
+  through the chunked MIPS top-k
+- ``parallel``  — the row-sharded catalog and embedding table, the
+  multi-process bootstrap
 - ``train``     — step-numbered checkpoints (torch.save)
 - ``experiments`` — the bin-scan prototypes (TPU kernels 9-12) and the
   three paths that run them
 - ``cli``       — reference-style flags and the subcommands (retrieval,
-  serving, the benchmark, MF training and evaluation)
+  serving, the benchmark, autotune, MF and two-tower training and
+  evaluation)
+- ``graft_entry`` — the entry points of `__graft_entry__.py` (the
+  certified forward, the multi-device dry run)
 """
 
 from spotify_recommender_tpu_torch.version import __version__

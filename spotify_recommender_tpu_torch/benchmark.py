@@ -25,8 +25,12 @@ Differences from the JAX harness (ROADMAP.md 3b and 3c):
 - `certificate_fallback_queries_per_batch` divides the fallbacks of the
   B = `num_queries` calls by their own count (the JAX harness divides every
   call's fallbacks, B = 1 calls included, by warmup + iters + 1);
-- no autotune cache is read, and a failing row raises: only the time
-  budget skips a row (recorded in `skipped_rows`);
+- a failing row raises: only the time budget skips a row (recorded in
+  `skipped_rows`);
+- a certified row reads the port's own autotune cache (ops/autotune.py,
+  the JAX harness reads its own) and names the configuration it ran:
+  `scan_depth`, `scan_escalate`, `scan_bins` (the W in use),
+  `catalog_tile`, and `autotuned` (whether they came from the cache);
 - the quality row's two-tower model starts from the port's own
   initialization (flax's distributions, not its `PRNGKey` draws), so its
   `two_tower_*` keys land within the spread of JAX's init seeds, not on
@@ -94,25 +98,35 @@ def _per_call_s(fn: Callable[[], object], n: int, device: torch.device) -> float
     return (time.perf_counter() - t0) / n
 
 
-def _tier(backend: str, feats, norms, catalog_tile: int, device: torch.device):
+def _tier(backend: str, feats, norms, catalog_tile: int, device: torch.device,
+          shape=None):
     """(step(queries, k, excl) -> (scores, rows), chosen name, the tier
-    object, or None for the oracle)."""
-    from spotify_recommender_tpu_torch.ops import fused_topk
+    object, or None for the oracle, and whether its configuration came
+    from the autotune cache entry of `shape` = (n, b, f, k))."""
+    from spotify_recommender_tpu_torch.ops import autotune, fused_topk
 
     if backend == "auto":
         backend = "certified" if device.type == "cuda" else "xla"
     if backend == "pallas":
         fr = fused_topk.FusedRetriever(feats, norms, None, device)
-        return fr, "pallas", fr
+        return fr, "pallas", fr, False
     if backend == "bf16":
         # the approx tier: the v3 scan without rerank or certificate
         fr = fused_topk.ApproxRetriever(feats, norms, None, device)
-        return fr, "bf16-approx", fr
+        return fr, "bf16-approx", fr, False
     if backend == "certified":
         cfg = (RetrievalConfig(catalog_tile=catalog_tile) if catalog_tile
                else RetrievalConfig())
-        fr = fused_topk.CertifiedRetriever(feats, norms, cfg, device)
-        return fr, "certified", fr
+        # the autotune cache (ops/autotune.tune): a device-measured winner
+        # for this (N, B, F, k) bucket overrides the defaults
+        tuned = (autotune.load_tuned(*shape, base=cfg, device=device)
+                 if shape else None)
+        if tuned is not None:
+            log.info("using autotuned config: depth=%d esc=%d W=%d tc=%d",
+                     tuned.scan_depth, tuned.scan_escalate, tuned.scan_bins,
+                     tuned.catalog_tile)
+        fr = fused_topk.CertifiedRetriever(feats, norms, tuned or cfg, device)
+        return fr, "certified", fr, tuned is not None
     if backend != "xla":
         raise ValueError(f"unknown backend {backend!r} (use one of {BACKENDS})")
     similarity.disable_tf32()
@@ -123,7 +137,7 @@ def _tier(backend: str, feats, norms, catalog_tile: int, device: torch.device):
         return similarity.exact_topk_chunked(q, dev_feats, dev_norms,
                                              exclude_rows=excl, k=k)
 
-    return oracle, "oracle", None
+    return oracle, "oracle", None, False
 
 
 def _verify(step, queries, excl, feats, norms, k, bitwise: bool) -> None:
@@ -177,7 +191,9 @@ def run_benchmark(
     )
     dev_queries = torch.from_numpy(queries).to(device)
     dev_excl = torch.from_numpy(q_rows).long().to(device)
-    step, chosen, fr = _tier(backend, feats, norms, catalog_tile, device)
+    step, chosen, fr, tuned = _tier(backend, feats, norms, catalog_tile,
+                                    device, (num_items, num_queries,
+                                             feature_dim, k))
     exact = chosen in ("certified", "pallas", "oracle")
     if verify_queries and not exact:
         raise ValueError(f"verify_queries needs an exact backend, not {chosen}")
@@ -224,6 +240,10 @@ def run_benchmark(
     if chosen == "certified":
         details["certificate_fallback_queries_per_batch"] = round(
             fallbacks / batch_calls, 3)
+        details.update(scan_depth=fr.layout.depth,
+                       scan_escalate=fr.config.scan_escalate,
+                       scan_bins=fr.layout.w,
+                       catalog_tile=fr.config.catalog_tile, autotuned=tuned)
     if verify_queries:
         m = min(verify_queries, num_queries)
         _verify(step, dev_queries[:m], dev_excl[:m], feats, norms, k,

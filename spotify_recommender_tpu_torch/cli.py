@@ -22,14 +22,15 @@ the JAX package's two calling styles:
   ``retrieve`` and ``serve`` take unchanged), and the two-tower model
   (models/two_tower.py): ``train-two-tower``, ``evaluate-two-tower`` and
   ``embed-catalog --two-tower`` (the item tower's embeddings as a
-  catalog).
+  catalog), and ``autotune`` (ops/autotune.py: the certified tier's
+  candidates measured at a shape, the winner persisted for the
+  benchmark).
 
 A global ``--device`` flag (default ``cuda``) names the device retrieval
 and training run on; ``--device cuda`` without a card raises.  A mesh
-spans the visible cards, or under ``--device cpu`` that many shards on
-the CPU.  ``train-mf --mesh`` / ``--shard-tables`` and
-``train-two-tower --mesh`` exit 1, as does the JAX package's
-``autotune``, which is not ported yet.
+(``retrieve --mesh``, ``train-mf --mesh [--shard-tables]``,
+``train-two-tower --mesh``) spans the visible cards, or under
+``--device cpu`` that many cells on the CPU.
 
 The default catalog artifact is ``songs_catalog.npz``, the same file the
 JAX package writes and reads.
@@ -54,10 +55,6 @@ BANNER = """\
 |          PyTorch / CUDA (Hopper) engine        |
 +------------------------------------------------+
 """
-
-# subcommands of the JAX package that this package does not have yet
-NOT_PORTED = ("autotune",)
-
 
 def _parse_mesh(spec: Optional[str], device: str):
     """``--mesh data=N,catalog=M`` -> core.mesh.Mesh (None when absent).
@@ -285,21 +282,10 @@ def cmd_retrieve(args, device: str) -> int:
     return 0
 
 
-def _mesh_not_ported(args) -> bool:
-    """True (with the one-line error) where a sharded run was asked for."""
-    if getattr(args, "mesh", None) or getattr(args, "shard_tables", False):
-        print("Error: --mesh / --shard-tables (sharded training) is not "
-              "ported yet (see ROADMAP.md)", file=sys.stderr)
-        return True
-    return False
-
-
 def cmd_train_mf(args, device: str) -> int:
     from spotify_recommender_tpu_torch.core.config import MFConfig
     from spotify_recommender_tpu_torch.models import mf
 
-    if _mesh_not_ported(args):
-        return 1
     cfg = MFConfig(
         embedding_dim=args.dim,
         num_iterations=args.iterations,
@@ -309,6 +295,7 @@ def cmd_train_mf(args, device: str) -> int:
     )
     return mf.train_from_cli(
         args.interactions, cfg, args.output, solver=args.solver,
+        mesh=_parse_mesh(args.mesh, device), shard_tables=args.shard_tables,
         checkpoint_dir=args.checkpoint_dir, subspace=args.subspace,
         device=device,
     )
@@ -318,8 +305,6 @@ def cmd_train_two_tower(args, device: str) -> int:
     from spotify_recommender_tpu_torch.core.config import TwoTowerConfig
     from spotify_recommender_tpu_torch.models import two_tower
 
-    if _mesh_not_ported(args):
-        return 1
     cfg = TwoTowerConfig(
         embedding_dim=args.dim,
         num_steps=args.steps,
@@ -329,6 +314,7 @@ def cmd_train_two_tower(args, device: str) -> int:
     )
     return two_tower.train_from_cli(
         args.catalog, cfg, args.output,
+        mesh=_parse_mesh(args.mesh, device),
         checkpoint_dir=args.checkpoint_dir,
         interactions_path=args.interactions,
         device=device,
@@ -483,6 +469,26 @@ def cmd_benchmark(args, device: str) -> int:
     return 0
 
 
+def cmd_autotune(args, device: str) -> int:
+    from spotify_recommender_tpu_torch.ops import autotune
+
+    result = autotune.tune(n=args.items, b=args.queries, f=args.dim, k=args.k,
+                           iters=args.iters, device=device)
+    for cand in result.failed:
+        print(f"candidate {cand['config']} failed: {cand['error']}",
+              file=sys.stderr)
+    cfg = result.config
+    print(
+        f"autotuned n={args.items} b={args.queries} f={args.dim} "
+        f"k={args.k}: depth={cfg.scan_depth} esc={cfg.scan_escalate} "
+        f"W={cfg.scan_bins} tq={cfg.query_tile} tc={cfg.catalog_tile} "
+        f"({result.ms:.3f} ms; "
+        + (f"saved to {result.path})" if result.saved
+           else "not saved: fewer than 2 candidates succeeded)")
+    )
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     from spotify_recommender_tpu_torch.benchmark import BACKENDS
 
@@ -544,6 +550,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="auto: certified on a card, the oracle on the CPU; "
                          "xla: the oracle")
 
+    sa = sub.add_parser(
+        "autotune",
+        help="measure the certified tier's tuning candidates on the device "
+             "for a shape and persist the winner (ops/autotune)",
+    )
+    sa.add_argument("--items", type=int, default=1_000_000)
+    sa.add_argument("--queries", type=int, default=1024)
+    sa.add_argument("--dim", type=int, default=12)
+    sa.add_argument("--k", type=int, default=10)
+    sa.add_argument("--iters", type=int, default=4)
+
     ss = sub.add_parser("serve", help="HTTP retrieval service")
     ss.add_argument("--catalog", default=DEFAULT_CATALOG)
     ss.add_argument("--host", default="127.0.0.1")
@@ -559,9 +576,10 @@ def build_parser() -> argparse.ArgumentParser:
     sm.add_argument("--solver", default="als", choices=["als", "sgd"])
     sm.add_argument("--seed", type=int, default=0)
     sm.add_argument("--mesh", default=None,
-                    help="device mesh of the JAX package (not ported: exits 1)")
+                    help="device mesh, e.g. data=8 (SGD) or catalog=8 (ALS)")
     sm.add_argument("--shard-tables", action="store_true",
-                    help="row-shard the factor tables (not ported: exits 1)")
+                    help="row-shard the factor tables over the mesh "
+                         "(for tables beyond one card's memory)")
     sm.add_argument("--checkpoint-dir", default=None,
                     help="checkpoint dir (resume from latest)")
     sm.add_argument("--subspace", type=int, default=0,
@@ -577,7 +595,7 @@ def build_parser() -> argparse.ArgumentParser:
     st.add_argument("--lr", type=float, default=1e-3)
     st.add_argument("--seed", type=int, default=0)
     st.add_argument("--mesh", default=None,
-                    help="device mesh of the JAX package (not ported: exits 1)")
+                    help="device mesh, e.g. data=8 (data-parallel batches)")
     st.add_argument("--checkpoint-dir", default=None,
                     help="checkpoint dir (resume from latest)")
     st.add_argument("--interactions", default=None,
@@ -691,14 +709,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     ref = _parse_reference_style(argv, device)
     if ref is not None:
         return ref
-    if argv and argv[0] in NOT_PORTED:
-        print(
-            f"Error: '{argv[0]}' is not ported to the PyTorch package yet "
-            "(see ROADMAP.md)",
-            file=sys.stderr,
-        )
-        return 1
-
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.command == "preprocess":
@@ -716,6 +726,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return cmd_benchmark(args, device)
     if args.command == "serve":
         return cmd_serve(args, device)
+    if args.command == "autotune":
+        return cmd_autotune(args, device)
     if args.command == "train-mf":
         return cmd_train_mf(args, device)
     if args.command == "evaluate-mf":

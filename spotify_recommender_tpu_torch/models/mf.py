@@ -24,8 +24,15 @@ run on ``device="cuda"`` unless told ``"cpu"``; without a card they
 raise.  Host data (`Interactions`, the splits) is numpy, bitwise the JAX
 package's, and the model artifact (`save_model`) is the same `.npz`.
 
-Not ported: the sharded half-steps (a `mesh` or `shard_tables` raises,
-ROADMAP.md queue 1 item 6).
+Sharded training over a device mesh (core/mesh.py; a mesh may repeat a
+device, or span the processes of a `torch.distributed` group):
+- ALS row-shards each half-step's solves over the "catalog" axis against
+  the replicated other table (`make_sharded_half_step`), or, with
+  `shard_tables`, keeps both factor tables row-sharded and exchanges the
+  neighbour rows through parallel/embedding.sharded_ids_lookup, the
+  Gramian summed from per-shard partials (`make_sharded_table_half_step`);
+- SGD splits each global batch over the "data" axis and averages the
+  gradients and the loss (`sgd_step(mesh=...)`).
 """
 
 from __future__ import annotations
@@ -42,12 +49,18 @@ from spotify_recommender_tpu_torch.core.logging import PhaseTimer, get_logger
 from spotify_recommender_tpu_torch.core.timing import Spans, span
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.topk import topk_stable
+from spotify_recommender_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    all_reduce,
+)
+from spotify_recommender_tpu_torch.parallel.embedding import (
+    local_shards,
+    sharded_ids_lookup,
+)
 
 log = get_logger(__name__)
 
 Device = Union[str, torch.device]
-MESH_NOT_PORTED = ("a device mesh (sharded ALS / SGD) is not ported yet "
-                   "(ROADMAP.md queue 1 item 6)")
 
 
 # --------------------------------------------------------------------------
@@ -181,6 +194,19 @@ def _block_inputs(item_idx, confidence, mask, sl, other, alpha):
     return y, w, cpref
 
 
+def _normal_solve(gram, y, w, cpref, reg, spans):
+    """One row block's implicit-feedback normal equations, solved:
+    A_r = G + λI + Σ_j w_rj y_rj y_rjᵀ (one batched product), b_r = Σ_j
+    cpref_rj y_rj.  Returns the (r, D) solutions and the count of failed
+    factorizations."""
+    d = gram.shape[0]
+    eye = reg * torch.eye(d, dtype=gram.dtype, device=gram.device)
+    a = gram[None] + torch.bmm((y * w[..., None]).transpose(1, 2), y) + eye[None]
+    b = torch.bmm(cpref[:, None, :], y)[:, 0]             # (r, D)
+    with span(spans, "chol"):
+        return _cholesky_solve(a, b)
+
+
 def _als_solve(
     other: torch.Tensor,        # (M, D) fixed factor table
     item_idx: torch.Tensor,     # (N, md) int32 neighbor ids into `other`
@@ -200,18 +226,13 @@ def _als_solve(
     n, md = item_idx.shape
     d = other.shape[1]
     gram = other.T @ other                                # (D, D)
-    eye = reg * torch.eye(d, dtype=other.dtype, device=other.device)
     out = torch.empty((n, d), dtype=other.dtype, device=other.device)
     failed = torch.zeros((), dtype=torch.int64, device=other.device)
     block = solve_block or _als_block_rows(n, md, d)
     for s in range(0, n, block):
         sl = slice(s, s + block)
         y, w, cpref = _block_inputs(item_idx, confidence, mask, sl, other, alpha)
-        # A_r = G + λI + Σ_j w_rj y_rj y_rjᵀ  (one batched product)
-        a = gram[None] + torch.bmm((y * w[..., None]).transpose(1, 2), y) + eye[None]
-        b = torch.bmm(cpref[:, None, :], y)[:, 0]         # (r, D)
-        with span(spans, "chol"):
-            out[sl], nfail = _cholesky_solve(a, b)
+        out[sl], nfail = _normal_solve(gram, y, w, cpref, reg, spans)
         failed += nfail
     _raise_if_failed(failed, "ALS half-step")
     return out
@@ -274,9 +295,112 @@ def _als_pp_solve(
     return out
 
 
-def _check_single_device(mesh, shard_tables: bool = False) -> None:
-    if mesh is not None or shard_tables:
-        raise ValueError(MESH_NOT_PORTED)
+def make_sharded_half_step(mesh, reg: float, alpha: float,
+                           axis: str = "catalog"):
+    """ALS half-step sharded over the solve axis: each shard solves its
+    contiguous block of rows against the replicated `other` table, the
+    canonical ALS scale-out (solves are row-independent).
+
+    The step takes the full `other` and the full row inputs (padded to a
+    multiple of the axis size, as `train_als` pads them) and returns the
+    full solved table on this process's first shard's device: shards that
+    share a device run one after another; across processes the blocks
+    are all-gathered."""
+    cells, home = local_shards(mesh, axis)
+    n_shards = mesh.shape[axis]
+
+    def step(other, item_idx, confidence, mask, spans=None):
+        n_local = item_idx.shape[0] // n_shards
+        outs = []
+        for c, dev in cells:
+            sl = slice(c * n_local, (c + 1) * n_local)
+            outs.append(_als_solve(
+                other.to(dev), item_idx[sl].to(dev), confidence[sl].to(dev),
+                mask[sl].to(dev), reg, alpha, spans=spans).to(home))
+        return all_gather_rows(torch.cat(outs), mesh)
+
+    return step
+
+
+def _als_solve_sharded_table(
+    other_shards: List[torch.Tensor],  # this process's row blocks of `other`
+    idx_shards: List[torch.Tensor],    # (n, md) solve rows of each shard
+    conf_shards: List[torch.Tensor],
+    mask_shards: List[torch.Tensor],
+    reg: float,
+    alpha: float,
+    mesh,
+    shard_ids: List[int],
+    spans: Optional[Spans] = None,
+) -> List[torch.Tensor]:
+    """ALS half-step where the fixed `other` table is row-sharded too (for
+    factor tables beyond one card's memory).
+
+    The Gramian is the sum of the shards' partials (shard order, then over
+    the processes); each row block's neighbour rows come through
+    `sharded_ids_lookup`; each shard then solves its block of rows.  No
+    device holds a whole table.  Inside one process the shards solve one
+    after another in ~1 GB row blocks (`_als_block_rows`), as the
+    single-device half-step does; across processes the lookup is a
+    collective over every local shard's block at once, so the budget is
+    split over the local shards."""
+    home = other_shards[0].device
+    gram = None
+    for sh in other_shards:
+        part = (sh.T @ sh).to(home)
+        gram = part if gram is None else gram + part
+    gram = all_reduce(gram, mesh)
+    n, md = idx_shards[0].shape
+    d = gram.shape[0]
+    across = mesh.spans_processes
+    targets = list(range(len(idx_shards)))
+    groups = [targets] if across else [[t] for t in targets]
+    block = max(1024, _als_block_rows(n, md, d) // len(groups[0]))
+    outs = [torch.empty((n, d), dtype=gram.dtype, device=i.device)
+            for i in idx_shards]
+    failed = torch.zeros((), dtype=torch.int64, device=home)
+    for group in groups:
+        grams = {t: gram.to(idx_shards[t].device) for t in group}
+        for s in range(0, n, block):
+            sl = slice(s, s + block)
+            ys = sharded_ids_lookup(other_shards,
+                                    [idx_shards[t][sl] for t in group],
+                                    shard_ids, across)
+            for t, y in zip(group, ys):
+                msk, conf = mask_shards[t][sl], conf_shards[t][sl]
+                w = torch.where(msk, alpha * conf, 0.0)
+                cpref = torch.where(msk, 1.0 + alpha * conf, 0.0)
+                outs[t][sl], nfail = _normal_solve(grams[t], y, w, cpref, reg,
+                                                   spans)
+                failed += nfail.to(home)
+    _raise_if_failed(failed, "sharded-table ALS half-step")
+    return outs
+
+
+def make_sharded_table_half_step(mesh, reg: float, alpha: float,
+                                 axis: str = "catalog"):
+    """Half-step with BOTH tables row-sharded over `axis` (nothing
+    replicated): the step takes this process's shards of `other` and of
+    the row inputs (lists, one per local shard, in shard order) and
+    returns its shards of the solved table."""
+    cells, _ = local_shards(mesh, axis)
+    shard_ids = [c for c, _ in cells]
+
+    def step(other_shards, idx_shards, conf_shards, mask_shards, spans=None):
+        return _als_solve_sharded_table(
+            other_shards, idx_shards, conf_shards, mask_shards, reg, alpha,
+            mesh, shard_ids, spans)
+
+    return step
+
+
+def _pad_rows(x: np.ndarray, multiple: int) -> np.ndarray:
+    pad = (-x.shape[0]) % multiple
+    if pad == 0:
+        return x
+    return np.concatenate(
+        [x, np.zeros((pad,) + x.shape[1:], x.dtype)], axis=0
+    )
 
 
 def _on_device(dev: torch.device, *arrays: np.ndarray) -> List[torch.Tensor]:
@@ -310,35 +434,98 @@ def train_als(
     stats: Optional[Dict[str, list]] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Full alternating loop on `device`.  Returns (user_factors,
-    item_factors) as numpy.
+    item_factors) as numpy, at the unpadded shapes.
 
-    With `checkpoint_dir`, the factor tables checkpoint every
-    `checkpoint_every` iterations (`train/checkpoint.py`) and training
-    resumes from the latest checkpoint if one exists.  With `subspace` > 0
-    (must divide embedding_dim), half-steps use the iALS++ sweep.  With a
-    `stats` dict, each iteration appends its milliseconds to
-    ``stats["user_ms"]``, ``["item_ms"]`` (the two halves) and
-    ``["chol_ms"]`` (the Cholesky factor + solve inside both).  A `mesh` or
-    `shard_tables` raises `ValueError` (not ported)."""
-    _check_single_device(mesh, shard_tables)
-    dev = resolve_device(device)
+    With a `mesh` (core/mesh.py), each half-step's solves are row-sharded
+    over its "catalog" axis on the mesh's devices (`device` is then not
+    used); with `shard_tables` too, the factor tables themselves stay
+    row-sharded and the neighbour rows cross shards through the
+    sharded-embedding lookup.  The row inputs and the tables are padded
+    to a multiple of the shard count after initializing at the unpadded
+    shapes, so the draws do not depend on it.  With `checkpoint_dir`, the
+    factor tables checkpoint every `checkpoint_every` iterations
+    (`train/checkpoint.py`; under a mesh the gathered, unpadded tables,
+    written by process 0) and training resumes from the latest checkpoint
+    if one exists.  With `subspace` > 0 (must divide embedding_dim;
+    single-device only: with a mesh it raises ValueError), half-steps use
+    the iALS++ sweep.  With a `stats` dict, each iteration appends its
+    milliseconds to ``stats["user_ms"]``, ``["item_ms"]`` (the two halves)
+    and ``["chol_ms"]`` (the Cholesky factor + solve inside both)."""
+    if subspace and mesh is not None:
+        raise ValueError(
+            "subspace (iALS++) is single-device for now; drop the mesh "
+            "or the subspace")
+    n_shards = mesh.shape["catalog"] if mesh is not None else 1
+    dev = (resolve_device(device) if mesh is None
+           else local_shards(mesh)[1])
     rng = np.random.default_rng(config.seed)
     d = config.embedding_dim
+    nu, ni = inter.num_users, inter.num_items
     if item_view is None:
         item_view = inter.transpose()
-    u_idx, u_conf, u_mask, i_idx, i_conf, i_mask = _on_device(
-        dev, inter.item_idx, inter.confidence, inter.mask,
-        item_view.item_idx, item_view.confidence, item_view.mask)
-    users, items = _on_device(dev, _init_table(rng, inter.num_users, d),
-                              _init_table(rng, inter.num_items, d))
+    u_idx, u_conf, u_mask, i_idx, i_conf, i_mask = _on_device(dev, *(
+        _pad_rows(a, n_shards) for a in (
+            inter.item_idx, inter.confidence, inter.mask,
+            item_view.item_idx, item_view.confidence, item_view.mask)))
+    # init with UNPADDED shapes so results are invariant to shard count,
+    # then zero-pad to the sharded row count
+    users, items = _on_device(
+        dev, _pad_rows(_init_table(rng, nu, d), n_shards),
+        _pad_rows(_init_table(rng, ni, d), n_shards))
 
-    def half(x, other, idx, conf, mask, spans):
-        if subspace:
-            return _als_pp_solve(other, idx, conf, mask, x, config.reg,
-                                 config.alpha, subspace, spans=spans)
-        return _als_solve(other, idx, conf, mask, config.reg, config.alpha,
-                          spans=spans)
+    if mesh is not None and shard_tables:
+        # distributed placement: this process's row blocks of each table
+        # and of each half's inputs, each on its cell's device
+        cells, _ = local_shards(mesh)
 
+        def layout(t):
+            rows = t.shape[0] // n_shards
+            return [t[c * rows:(c + 1) * rows].to(cd) for c, cd in cells]
+
+        table_step = make_sharded_table_half_step(mesh, config.reg,
+                                                  config.alpha)
+        u_in = [layout(t) for t in (u_idx, u_conf, u_mask)]
+        i_in = [layout(t) for t in (i_idx, i_conf, i_mask)]
+
+        def full(shards, rows):
+            """A table gathered from its shards, unpadded."""
+            return all_gather_rows(torch.cat([t.to(dev) for t in shards]),
+                                   mesh)[:rows]
+
+        def solve_users(users, items, spans):
+            return table_step(items, *u_in, spans=spans)
+
+        def solve_items(items, users, spans):
+            return table_step(users, *i_in, spans=spans)
+    else:
+        if mesh is not None:
+            row_step = make_sharded_half_step(mesh, config.reg, config.alpha)
+
+            def half(x, other, rows, idx, conf, mask, spans):
+                # the other table's zero pad rows add nothing to its Gram
+                return row_step(other[:rows], idx, conf, mask, spans)
+        else:
+            def half(x, other, rows, idx, conf, mask, spans):
+                if subspace:
+                    return _als_pp_solve(other, idx, conf, mask, x, config.reg,
+                                         config.alpha, subspace, spans=spans)
+                return _als_solve(other, idx, conf, mask, config.reg,
+                                  config.alpha, spans=spans)
+
+        def layout(t):
+            return t
+
+        def full(t, rows):
+            return t[:rows]
+
+        def solve_users(users, items, spans):
+            return half(users, items, ni, u_idx, u_conf, u_mask, spans)
+
+        def solve_items(items, users, spans):
+            return half(items, users, nu, i_idx, i_conf, i_mask, spans)
+
+    users, items = layout(users), layout(items)
+    writer = mesh is None or mesh.process_index == 0
     ckpt_mgr = None
     start_iter = 0
     if checkpoint_dir is not None:
@@ -347,9 +534,10 @@ def train_als(
         ckpt_mgr = CheckpointManager(checkpoint_dir)
         latest = ckpt_mgr.latest_step()
         if latest is not None:
-            state = ckpt_mgr.restore(
-                latest, template={"users": users, "items": items})
-            users, items = state["users"], state["items"]
+            state = ckpt_mgr.restore(latest, device=dev)
+            users, items = (layout(torch.as_tensor(_pad_rows(
+                state[name].cpu().numpy(), n_shards), device=dev))
+                for name in ("users", "items"))
             start_iter = latest + 1
             log.info("resumed ALS from iteration %d", start_iter)
 
@@ -358,25 +546,28 @@ def train_als(
     for it in range(start_iter, config.num_iterations):
         with timer.phase(f"iter{it}"):
             with span(spans, "user"):
-                users = half(users, items, u_idx, u_conf, u_mask, spans)
+                users = solve_users(users, items, spans)
             with span(spans, "item"):
-                items = half(items, users, i_idx, i_conf, i_mask, spans)
+                items = solve_items(items, users, spans)
             if spans is not None:
                 ms = spans.read()
                 for name in ("user", "item", "chol"):
                     stats.setdefault(f"{name}_ms", []).append(ms[name])
-        if callback is not None:
-            callback(it, users, items)
-        if ckpt_mgr is not None and (
+        save = ckpt_mgr is not None and (
             (it + 1) % checkpoint_every == 0
-            or it == config.num_iterations - 1
-        ):
-            ckpt_mgr.save(it, {"users": users, "items": items}, force=True)
+            or it == config.num_iterations - 1)
+        if callback is not None or save:
+            u_full, i_full = full(users, nu), full(items, ni)
+            if callback is not None:
+                callback(it, u_full, i_full)
+            if save and writer:
+                ckpt_mgr.save(it, {"users": u_full, "items": i_full},
+                              force=True)
     if ckpt_mgr is not None:
         ckpt_mgr.wait()
         ckpt_mgr.close()
     log.info("ALS done: %s", timer.report())
-    return _to_numpy(users), _to_numpy(items)
+    return _to_numpy(full(users, nu)), _to_numpy(full(items, ni))
 
 
 # --------------------------------------------------------------------------
@@ -421,17 +612,69 @@ def _sgd_loss(
     return loss_pos + loss_neg + l2
 
 
+def data_cells(mesh, axis: str = "data"):
+    """This process's cells of the mesh's first column along the data
+    axis, as (data index, device) pairs: the data-parallel steps run one
+    slice of each global batch on each (replicated over "catalog", as the
+    JAX package's shard_map)."""
+    if axis != mesh.axis_names[0]:
+        raise ValueError(f"the batch splits along the mesh's "
+                         f"{mesh.axis_names[0]!r} axis, not {axis!r}")
+    cells = [(d, mesh.devices[d, 0]) for d in range(mesh.shape[axis])
+             if mesh.is_local(d, 0)]
+    if not cells:
+        raise ValueError("this process holds no cell of the mesh's data "
+                         "axis (its first column)")
+    return cells
+
+
+def average_grads(params, loss: torch.Tensor, mesh) -> torch.Tensor:
+    """Across processes, the gradients of `params` and the `loss` summed
+    over the group in place (each process's loss is its shards' share of
+    the global mean); the loss as it is in one process."""
+    if mesh is None or not mesh.spans_processes:
+        return loss
+    for p in params:
+        all_reduce(p.grad, mesh)
+    return all_reduce(loss.clone(), mesh)
+
+
 def sgd_step(state: SGDState, batch: Dict[str, torch.Tensor], reg: float,
-             alpha: float) -> torch.Tensor:
+             alpha: float, mesh=None) -> torch.Tensor:
     """One Adam step on the sampled loss; returns the loss (on the device).
     The gathers' backward accumulates with atomics on CUDA, so a rerun on
-    the card equals the last only within a tolerance."""
+    the card equals the last only within a tolerance.
+
+    With a `mesh` whose "data" axis is > 1 the batch is split into that
+    many contiguous slices (as `P("data")` splits it), each slice's loss
+    computed on its cell's device, and the gradients and the loss are the
+    mean over the slices (JAX: `pmean` over "data")."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss = _sgd_loss(state.params, batch["user"], batch["item"],
-                     batch["conf"], batch["neg"], reg, alpha)
+    nd = mesh.shape["data"] if mesh is not None else 1
+    if nd == 1:
+        loss = _sgd_loss(state.params, batch["user"], batch["item"],
+                         batch["conf"], batch["neg"], reg, alpha)
+        loss.backward()
+        state.optimizer.step()
+        return loss.detach()
+    home = state.users.device
+    bl, rest = divmod(batch["user"].shape[0], nd)
+    if rest:
+        raise ValueError(f"batch {batch['user'].shape[0]} must divide the "
+                         f"'data' axis size {nd}")
+    total = None
+    for d, dev in data_cells(mesh):
+        sl = slice(d * bl, (d + 1) * bl)
+        params = {k: v.to(dev) for k, v in state.params.items()}
+        part = _sgd_loss(params, *(batch[k][sl].to(dev) for k in
+                                   ("user", "item", "conf", "neg")),
+                         reg, alpha).to(home)
+        total = part if total is None else total + part
+    loss = total / nd
     loss.backward()
+    loss = average_grads(state.params.values(), loss.detach(), mesh)
     state.optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def train_sgd(
@@ -449,10 +692,16 @@ def train_sgd(
     and optimizer state checkpoint every `checkpoint_every` steps and
     training resumes from the latest checkpoint (the numpy batch RNG
     replays the skipped steps, so a resumed run equals an uninterrupted
-    one).  Each step's loss is appended to `losses` when given.  A `mesh`
-    raises `ValueError` (not ported)."""
-    _check_single_device(mesh)
-    dev = resolve_device(device)
+    one).  Each step's loss is appended to `losses` when given.
+
+    With a `mesh` whose "data" axis nd is > 1, each step's global batch
+    of max(nd, (min(batch_size, n_obs) // nd) * nd) draws (the
+    single-device draws when nd divides the batch) is split over that
+    axis (`sgd_step`), the parameters on the mesh's first local cell's
+    device (`device` is then not used); under a process group only process
+    0 writes checkpoints."""
+    dp = mesh is not None and mesh.shape.get("data", 1) > 1
+    dev = data_cells(mesh)[0][1] if dp else resolve_device(device)
     rng = np.random.default_rng(config.seed)
     d = config.embedding_dim
     scale = 1.0 / np.sqrt(d)
@@ -473,7 +722,12 @@ def train_sgd(
     items_f = inter.item_idx[uu, jj]
     conf_f = inter.confidence[uu, jj]
     n_obs = len(users_f)
-    b = min(config.batch_size, n_obs)
+    if dp:
+        # the global batch must divide evenly over the data axis
+        nd = mesh.shape["data"]
+        b = max(nd, (min(config.batch_size, n_obs) // nd) * nd)
+    else:
+        b = min(config.batch_size, n_obs)
 
     ckpt_mgr = None
     start_step = 0
@@ -491,6 +745,7 @@ def train_sgd(
             start_step = latest + 1
             log.info("resumed SGD-MF from step %d", start_step)
 
+    writer = mesh is None or mesh.process_index == 0   # writes checkpoints
     history = []
     for step in range(num_steps):
         sel = rng.integers(0, n_obs, size=b)
@@ -503,8 +758,9 @@ def train_sgd(
             "conf": torch.as_tensor(conf_f[sel], device=dev),
             "neg": torch.as_tensor(neg, dtype=torch.int64, device=dev),
         }
-        history.append(sgd_step(state, batch, config.reg, config.alpha))
-        if ckpt_mgr is not None and (
+        history.append(sgd_step(state, batch, config.reg, config.alpha,
+                                mesh if dp else None))
+        if ckpt_mgr is not None and writer and (
             (step + 1) % checkpoint_every == 0 or step == num_steps - 1
         ):
             params = {k: v.detach() for k, v in state.params.items()}
@@ -776,6 +1032,8 @@ def train_from_cli(
     config: MFConfig,
     output: str,
     solver: str = "als",
+    mesh=None,
+    shard_tables: bool = False,
     checkpoint_dir: Optional[str] = None,
     subspace: int = 0,
     device: Device = "cuda",
@@ -783,18 +1041,19 @@ def train_from_cli(
     inter = load_interactions(interactions_path)
     train, heldout, seen = split_leave_k_out(inter, k=2, seed=config.seed)
     log.info(
-        "MF train: %d users x %d items, solver=%s dim=%d device=%s",
+        "MF train: %d users x %d items, solver=%s dim=%d device=%s mesh=%s",
         inter.num_users, inter.num_items, solver, config.embedding_dim, device,
+        mesh.shape if mesh is not None else None,
     )
     if solver == "als":
         users, items = train_als(
-            train, config, checkpoint_dir=checkpoint_dir, subspace=subspace,
-            device=device,
+            train, config, mesh=mesh, shard_tables=shard_tables,
+            checkpoint_dir=checkpoint_dir, subspace=subspace, device=device,
         )
     else:
         users, items = train_sgd(
-            train, config, num_steps=2000, checkpoint_dir=checkpoint_dir,
-            device=device,
+            train, config, num_steps=2000, mesh=mesh,
+            checkpoint_dir=checkpoint_dir, device=device,
         )
     metrics = evaluate_ranking(users, items, heldout, k=10, train_mask=seen,
                                device=device)

@@ -31,8 +31,16 @@ initial weights (`init_params`) follow flax's distributions, but not its
 off on CUDA).  Entry points run on ``device="cuda"`` unless told
 ``"cpu"``; without a card they raise.
 
-Not ported: the data-parallel step (a `mesh` raises, ROADMAP.md queue 1
-item 6).
+Data parallelism (`train(mesh=...)`, JAX `make_train_step(axis_name=
+"data")`): each global batch is split over the mesh's "data" axis; every
+slice's queries score against the item embeddings of ALL slices (the
+global batch's in-batch negatives, labels `slice * b + arange(b)`), and
+the step descends the gradient of the mean of the slices' losses.
+Inside one process the slices' item embeddings are concatenated (autograd
+flows through the concatenation); across the processes of a
+`torch.distributed` group they are all-gathered with
+`torch.distributed.nn.functional.all_gather` and the gradients summed by
+`all_reduce`.
 """
 
 from __future__ import annotations
@@ -64,8 +72,6 @@ TOWERS = ("query_tower", "item_tower")
 # flax's lecun_normal: a normal truncated at +-2 std, rescaled so that the
 # truncated draw has variance 1 / fan_in (jax.nn.initializers.variance_scaling)
 TRUNC_STD_CORRECTION = 0.87962566103423978
-MESH_NOT_PORTED = ("a device mesh (the data-parallel two-tower step) is not "
-                   "ported yet (ROADMAP.md queue 1 item 6)")
 
 
 class Tower(nn.Module):
@@ -204,12 +210,15 @@ def make_model(params: Params, config: TwoTowerConfig,
 
 
 def info_nce_loss(q_emb: torch.Tensor, i_emb: torch.Tensor,
-                  temperature: float) -> torch.Tensor:
-    """In-batch softmax cross entropy of (b, D) queries against their
-    row-aligned (b, D) positive items, every other item of the batch a
-    negative; query to item only, as the JAX function computes."""
+                  temperature: float, offset: int = 0) -> torch.Tensor:
+    """In-batch softmax cross entropy of (b, D) queries against the item
+    embeddings `i_emb` (b_all, D), query r's positive at row `offset + r`
+    and every other item a negative; query to item only, as the JAX
+    function computes.  Data parallel: `i_emb` is every slice's items and
+    `offset` this slice's first row (JAX: all_gather over the axis, labels
+    `axis_index * b + arange(b)`)."""
     logits = (q_emb.float() @ i_emb.float().T) / temperature
-    labels = torch.arange(q_emb.shape[0], device=q_emb.device)
+    labels = offset + torch.arange(q_emb.shape[0], device=q_emb.device)
     return F.cross_entropy(logits, labels)
 
 
@@ -219,17 +228,61 @@ def make_optimizer(model: nn.Module, config: TwoTowerConfig):
                             betas=(0.9, 0.999), eps=1e-8)
 
 
+def _gather_items(i_local: torch.Tensor, mesh) -> torch.Tensor:
+    """This process's slices' item embeddings in, every slice's out (in
+    data order), differentiably across processes."""
+    if not mesh.spans_processes:
+        return i_local
+    import warnings
+
+    import torch.distributed.nn.functional as dnf
+
+    with warnings.catch_warnings():   # deprecated in torch 2.13
+        warnings.simplefilter("ignore", FutureWarning)
+        return torch.cat(dnf.all_gather(i_local))
+
+
 def train_step(model: TwoTower, optimizer: torch.optim.Optimizer,
                q_batch: torch.Tensor, i_batch: torch.Tensor,
-               temperature: float) -> torch.Tensor:
+               temperature: float, mesh=None) -> torch.Tensor:
     """One Adam step on the in-batch loss; returns the loss (on the
-    device)."""
+    device).  With a `mesh` whose "data" axis nd is > 1, the batch splits
+    into nd contiguous slices, each run on its cell's device against the
+    items of all slices, and the step takes the gradient of the mean of
+    the slices' losses (see the module docstring)."""
     optimizer.zero_grad(set_to_none=True)
-    loss = info_nce_loss(model.embed_query(q_batch), model.embed_item(i_batch),
-                         temperature)
+    nd = mesh.shape["data"] if mesh is not None else 1
+    if nd == 1:
+        loss = info_nce_loss(model.embed_query(q_batch),
+                             model.embed_item(i_batch), temperature)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+    home = q_batch.device
+    bl, rest = divmod(q_batch.shape[0], nd)
+    if rest:
+        raise ValueError(f"batch {q_batch.shape[0]} must divide the 'data' "
+                         f"axis size {nd}")
+    cells = mf.data_cells(mesh)
+    params = dict(model.named_parameters())
+    q_embs, i_embs = [], []
+    for d, dev in cells:
+        sl = slice(d * bl, (d + 1) * bl)
+        on_dev = {k: v.to(dev) for k, v in params.items()}
+        qe, ie = torch.func.functional_call(
+            model, on_dev, (q_batch[sl].to(dev), i_batch[sl].to(dev)))
+        q_embs.append(qe.to(home))
+        i_embs.append(ie.to(home))
+    i_all = _gather_items(torch.cat(i_embs), mesh)
+    total = None
+    for (d, _), qe in zip(cells, q_embs):
+        part = info_nce_loss(qe, i_all, temperature, offset=d * bl)
+        total = part if total is None else total + part
+    loss = total / nd
     loss.backward()
+    loss = mf.average_grads(params.values(), loss.detach(), mesh)
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 @dataclasses.dataclass
@@ -319,10 +372,15 @@ def train(
     first batches and is not the uninterrupted run (ROADMAP 3c).  With a
     `stats` dict, each step appends its host pair sampling ms to
     ``stats["pairs_ms"]`` and its device step ms (CUDA events on a card) to
-    ``stats["step_ms"]``.  A `mesh` raises `ValueError` (not ported)."""
-    if mesh is not None:
-        raise ValueError(MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    ``stats["step_ms"]`` and its loss to ``stats["loss"]``.
+
+    With a `mesh` whose "data" axis nd is > 1, each step's `batch_size`
+    pairs (a multiple of nd) split over that axis (`train_step`); the
+    model lives on the mesh's first local cell's device (`device` is then
+    not used), and under a process group only process 0 writes
+    checkpoints."""
+    dp = mesh is not None and mesh.shape.get("data", 1) > 1
+    dev = mf.data_cells(mesh)[0][1] if dp else resolve_device(device)
     rng = np.random.default_rng(config.seed)
     feat_dim = features.shape[1]
     model = make_model(init_params(config, feat_dim,
@@ -348,6 +406,7 @@ def train(
     )
 
     spans = Spans(dev) if stats is not None else None
+    writer = mesh is None or mesh.process_index == 0   # writes checkpoints
     losses = []
     for s in range(start_step, config.num_steps):
         t0 = time.perf_counter()
@@ -358,12 +417,13 @@ def train(
         with span(spans, "step"):
             loss = train_step(model, optimizer, torch.as_tensor(q, device=dev),
                               torch.as_tensor(i, device=dev),
-                              config.temperature)
+                              config.temperature, mesh if dp else None)
         if spans is not None:
             stats.setdefault("step_ms", []).append(spans.read()["step"])
+            stats.setdefault("loss", []).append(float(loss))
         if s % 50 == 0 or s == config.num_steps - 1:
             losses.append(float(loss))
-        if ckpt_mgr is not None and (
+        if ckpt_mgr is not None and writer and (
             (s + 1) % checkpoint_every == 0 or s == config.num_steps - 1
         ):
             ckpt_mgr.save(s, {"params": model.state_dict(),
@@ -556,3 +616,25 @@ def evaluate_colisten(
         seen_mask=seen_mask[eval_users],
         device=device,
     )
+
+
+def dryrun_train_step(mesh) -> None:
+    """One data-parallel train step on tiny shapes over every cell of
+    `mesh`, laid out again as a pure "data" axis (the graft entry's
+    hook)."""
+    from spotify_recommender_tpu_torch.core.mesh import Mesh
+
+    n = mesh.devices.size
+    dp_mesh = Mesh(devices=mesh.devices.reshape(n, 1),
+                   axis_names=("data", "catalog"),
+                   process_ids=mesh.process_ids.reshape(n, 1),
+                   process_index=mesh.process_index)
+    config = TwoTowerConfig(embedding_dim=8, hidden_dims=(16,),
+                            batch_size=4 * n, num_steps=1)
+    rng = np.random.default_rng(0)
+    feats = rng.random((64, 12)).astype(np.float32)
+    genres = rng.integers(0, 4, size=64).astype(np.int32)
+    result = train(feats, genres, config, mesh=dp_mesh,
+                   device=mesh.devices.flat[0])
+    if not np.isfinite(result.losses[-1]):
+        raise FloatingPointError(f"dry-run loss {result.losses[-1]}")

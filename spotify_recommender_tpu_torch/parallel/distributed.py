@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import warnings
 from typing import Optional, Sequence, Union
 
 import numpy as np
@@ -124,3 +125,29 @@ def global_mesh(
             tuple(axis_sizes)),
         process_index=rank,
     )
+
+
+def all_gather_rows(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This process's rows of a mesh-wide tensor in, every process's out,
+    concatenated along dim 0 in rank order (`all_gather_into_tensor`); the
+    tensor itself where the mesh lives in one process."""
+    if not mesh.spans_processes:
+        return t
+    import torch.distributed as dist
+
+    full = t.new_empty((dist.get_world_size() * t.shape[0], *t.shape[1:]))
+    with warnings.catch_warnings():   # renamed all_gather_single in 2.13
+        warnings.simplefilter("ignore", FutureWarning)
+        dist.all_gather_into_tensor(full, t.contiguous())
+    return full
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "SUM") -> torch.Tensor:
+    """`t` reduced in place over the mesh's processes (itself in one
+    process)."""
+    if not mesh.spans_processes:
+        return t
+    import torch.distributed as dist
+
+    dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
+    return t

@@ -48,7 +48,6 @@ port.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -58,6 +57,10 @@ from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.core.logging import get_logger
 from spotify_recommender_tpu_torch.core.mesh import Mesh
 from spotify_recommender_tpu_torch.ops import similarity
+from spotify_recommender_tpu_torch.parallel.distributed import (
+    all_gather_rows,
+    all_reduce,
+)
 from spotify_recommender_tpu_torch.ops.cuda.split import split_bf16x2
 from spotify_recommender_tpu_torch.ops.fused_topk import (
     CertifiedLayout,
@@ -94,29 +97,7 @@ def gather_candidates(
     this process's cells in, the same stacked over the group's ranks out
     (rank 0's cells first).  Inside one process they are returned as they
     are."""
-    if not mesh.spans_processes:
-        return scores, rows
-    import torch.distributed as dist
-
-    world = dist.get_world_size()
-    out = []
-    for t in (scores, rows):
-        full = t.new_empty((world * t.shape[0], *t.shape[1:]))
-        with warnings.catch_warnings():   # renamed all_gather_single in 2.13
-            warnings.simplefilter("ignore", FutureWarning)
-            dist.all_gather_into_tensor(full, t.contiguous())
-        out.append(full)
-    return out[0], out[1]
-
-
-def _all_reduce(t: torch.Tensor, mesh: Mesh, op: str) -> torch.Tensor:
-    """`t` reduced over the mesh's processes (itself in one process)."""
-    if not mesh.spans_processes:
-        return t
-    import torch.distributed as dist
-
-    dist.all_reduce(t, op=getattr(dist.ReduceOp, op))
-    return t
+    return all_gather_rows(scores, mesh), all_gather_rows(rows, mesh)
 
 
 class ShardedCatalog:
@@ -297,7 +278,7 @@ class ShardedCatalog:
         nz = np.concatenate([nrm[nrm > 0] for _, nrm in shard_rows.values()])
         rn_min = torch.tensor(float(nz.min()) if nz.size else np.inf,
                               dtype=torch.float64, device=mesh.devices[cells[0]])
-        rn_min = float(_all_reduce(rn_min, mesh, "MIN"))
+        rn_min = float(all_reduce(rn_min, mesh, "MIN"))
         self.rn_min = rn_min if np.isfinite(rn_min) else float(
             np.finfo(np.float32).max)
 
@@ -367,7 +348,7 @@ class ShardedCatalog:
                                  device=self._home) - torch.tensor(
                                      before, dtype=torch.int64,
                                      device=self._home)
-            delta = _all_reduce(delta, self.mesh, "SUM").tolist()
+            delta = all_reduce(delta, self.mesh, "SUM").tolist()
             self.fallbacks += delta[0]
             self.escalations += delta[1]
         # the gathered cells in the ranks' order -> the global top-k per

@@ -19,6 +19,15 @@ from spotify_recommender_tpu_torch.models import two_tower
 from spotify_recommender_tpu_torch.ops import fused_topk
 
 SMALL = dict(num_items=4096, num_queries=16, warmup=1, iters=1)
+# what a certified row adds to the JAX row's keys: the configuration it ran
+CONFIG_KEYS = {"scan_depth", "scan_escalate", "scan_bins", "catalog_tile",
+               "autotuned"}
+
+
+@pytest.fixture(autouse=True)
+def no_autotune_cache(tmp_path, monkeypatch):
+    """Both harnesses read an autotune cache; none exists here."""
+    monkeypatch.setenv("SRT_AUTOTUNE_CACHE", str(tmp_path / "none.json"))
 
 
 @pytest.mark.parametrize("n,b,dim,seed", [
@@ -47,10 +56,11 @@ def test_row_has_the_jax_metric_and_details_keys(backend, jax_interpret):
     theirs = jbench.run_benchmark(backend=backend, also_b1=True, **SMALL)
     assert ours.metric == theirs.metric
     assert ours.unit == theirs.unit
-    assert set(ours.details) == set(theirs.details)
-    assert ours.details["num_items"] == theirs.details["num_items"] == 4096
     want = {"auto": "oracle", "xla": "oracle", "pallas": "pallas",
             "bf16": "bf16-approx", "certified": "certified"}[backend]
+    assert set(ours.details) == set(theirs.details) | (
+        CONFIG_KEYS if want == "certified" else set())
+    assert ours.details["num_items"] == theirs.details["num_items"] == 4096
     assert ours.details["backend"] == want
     assert ours.details["platform"] == "cpu"
     assert ours.value > 0 and ours.vs_baseline == round(
@@ -193,24 +203,20 @@ def test_cli_benchmark(backend, capsys):
         f"queries/sec/chip {kind} top-10 over 3000 items")
 
 
-# the JAX subcommands the port lacked before the MF path: the one still
-# missing exits 1 as not ported; the MF and two-tower ones exit 1, with one
-# line, where they refuse their input (a mesh: as not ported)
+# the JAX subcommands the port lacked before the MF path: each exits 1,
+# with one line, where it refuses its input
 STILL_EXIT_1 = {
-    "autotune": [], "train-two-tower": ["--mesh", "data=2"],
+    "train-two-tower": ["--catalog", "cat.npz", "--interactions", "inter.csv",
+                        "--mesh", "data=2"],
     "evaluate-two-tower": ["inter.csv", "--two-tower", "tt.npz",
                            "--catalog", "cat.npz"],
-    "train-mf": ["inter.csv", "--mesh", "catalog=2"],
     "evaluate-mf": ["inter.csv", "--mf", "small.npz"],
     "recommend-user": ["--mf", "small.npz", "--user", "40"],
     "embed-catalog": ["--mf", "small.npz", "--catalog", "cat.npz"],
 }
 
 
-@pytest.mark.parametrize("command", list(STILL_EXIT_1))
-def test_unported_subcommands_still_exit_1(command, capsys, tmp_path,
-                                           monkeypatch):
-    monkeypatch.chdir(tmp_path)
+def _subcommand_inputs(tmp_path):
     (tmp_path / "inter.csv").write_text(
         "user_id,item_id,count\n" + "".join(f"{u},{u % 7},1\n" for u in range(60)))
     np.savez(tmp_path / "small.npz", user_factors=np.ones((30, 4), np.float32),
@@ -221,12 +227,35 @@ def test_unported_subcommands_still_exit_1(command, capsys, tmp_path,
     cfg = TwoTowerConfig(embedding_dim=4, hidden_dims=(8,))
     two_tower.save_model(str(tmp_path / "tt.npz"), two_tower.init_params(
         cfg, 12, torch.Generator().manual_seed(0)), cfg)
-    assert (command in cli.NOT_PORTED) == (not STILL_EXIT_1[command])
+
+
+@pytest.mark.parametrize("command", list(STILL_EXIT_1))
+def test_unported_subcommands_still_exit_1(command, capsys, tmp_path,
+                                           monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    _subcommand_inputs(tmp_path)
+    assert not hasattr(cli, "NOT_PORTED")
     assert cli.main(["--device", "cpu", command, *STILL_EXIT_1[command]]) == 1
     err = capsys.readouterr().err
     assert err.startswith("Error: ") and err.count("\n") == 1
-    if command in cli.NOT_PORTED or "--mesh" in STILL_EXIT_1[command]:
-        assert "not ported" in err
+
+
+# the subcommands and options the port lacked until the training half of
+# sharding: now they run
+NOW_EXIT_0 = {
+    "autotune": ["--items", "2048", "--queries", "8", "--iters", "1"],
+    "train-mf": ["inter.csv", "-o", "m.npz", "--dim", "4", "--iterations", "2",
+                 "--mesh", "catalog=2", "--shard-tables"],
+}
+
+
+@pytest.mark.parametrize("command", list(NOW_EXIT_0))
+def test_ported_subcommands_exit_0(command, capsys, tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    _subcommand_inputs(tmp_path)
+    assert cli.main(["--device", "cpu", command, *NOW_EXIT_0[command]]) == 0
+    out = capsys.readouterr().out
+    assert ("autotuned n=2048" if command == "autotune" else "recall@10=") in out
 
 
 def test_quality_row_equals_jax_train_and_eval(one_thread):

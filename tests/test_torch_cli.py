@@ -29,6 +29,13 @@ from spotify_recommender_tpu_torch.retrieval.retriever import Retriever
 SCORE_ATOL = 2e-6
 
 
+@pytest.fixture(autouse=True)
+def no_autotune_cache(tmp_path, monkeypatch):
+    """Both CLIs' certified rows read an autotune cache; none exists here
+    unless a test writes one."""
+    monkeypatch.setenv("SRT_AUTOTUNE_CACHE", str(tmp_path / "none.json"))
+
+
 @pytest.fixture
 def dirs(tmp_path):
     csv = make_songs_csv(tmp_path / "songs.csv", n_rows=300, n_genres=7, seed=5)
@@ -122,9 +129,19 @@ def test_error_cases_exit_1_in_both(monkeypatch, capsys, dirs, argv):
     assert jrc == trc == 1
 
 
-def test_unported_subcommand_exits_1(capsys):
-    assert tcli.main(["--device", "cpu", "autotune"]) == 1
-    assert "not ported" in capsys.readouterr().err
+def test_autotune_subcommand_persists_its_winner(monkeypatch, capsys,
+                                                tmp_path):
+    """The JAX CLI's `autotune` (cli.py:690-705), on the CPU's plain
+    kernels: exit 0, one line naming the winner, the cache written where
+    SRT_AUTOTUNE_CACHE says."""
+    cache = tmp_path / "at.json"
+    monkeypatch.setenv("SRT_AUTOTUNE_CACHE", str(cache))
+    rc = tcli.main(["--device", "cpu", "autotune", "--items", "2048",
+                    "--queries", "8", "--k", "5", "--iters", "1"])
+    out = capsys.readouterr().out.splitlines()[-1]
+    assert rc == 0 and out.startswith("autotuned n=2048 b=8 f=12 k=5: depth=")
+    assert f"saved to {cache})" in out
+    assert list(json.loads(cache.read_text())) == ["cpu|n11|b3|f12|k5"]
 
 
 def test_cuda_without_a_card_raises(monkeypatch, capsys, dirs):
@@ -460,24 +477,82 @@ def test_embed_catalog_needs_row_aligned_items(monkeypatch, capsys, dirs):
     assert jrc == trc == 1
 
 
-@pytest.mark.parametrize("argv", [
-    [*TRAIN_ALS, "--mesh", "catalog=2"],
-    [*TRAIN_ALS, "--shard-tables"],
-    ["train-two-tower", "--mesh", "data=2"],
+@pytest.mark.parametrize("extra,atol", [
+    (["--mesh", "catalog=2"], 5e-5),
+    (["--mesh", "catalog=2", "--shard-tables"], 1e-4),
+    (["--mesh", "data=1,catalog=3", "--shard-tables"], 1e-4),
 ])
-def test_mf_mesh_and_two_tower_exit_1_with_one_line(monkeypatch, capsys, dirs,
-                                                    argv):
+def test_train_mf_mesh_equals_the_jax_cli(monkeypatch, capsys, dirs, extra,
+                                          atol):
+    """Sharded ALS through both CLIs (the JAX one on its 8-device CPU
+    mesh): the same line, factors within the sharded ALS bounds of
+    tests/test_torch_mf_sharded.py."""
     _mf_inputs(dirs)
-    monkeypatch.chdir(dirs[2])
-    capsys.readouterr()
-    assert tcli.main(["--device", "cpu", *argv]) == 1
-    err = capsys.readouterr().err
-    assert err.count("\n") == 1 and "not ported" in err
-    assert not (dirs[2] / "mf.npz").exists()
+    (jrc, jout), (trc, tout) = _both(monkeypatch, capsys, dirs,
+                                     TRAIN_ALS + extra)
+    assert jrc == trc == 0
+    assert tout == jout and tout.lstrip().startswith("recall@10=")
+    _, jdir, tdir = dirs
+    with np.load(jdir / "mf.npz") as j, np.load(tdir / "mf.npz") as t:
+        for key in ("user_factors", "item_factors"):
+            np.testing.assert_allclose(t[key], j[key], rtol=0, atol=atol)
+
+
+def test_train_mf_sgd_over_a_data_mesh(monkeypatch, capsys, dirs):
+    """`train-mf --solver sgd --mesh data=2` equals the library's
+    data-parallel `train_sgd` + `evaluate_ranking`."""
+    from spotify_recommender_tpu_torch.core.config import MeshConfig, MFConfig
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+    from spotify_recommender_tpu_torch.models import mf
+
+    _mf_inputs(dirs)
+    tdir = dirs[2]
+    rc, out = _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER,
+                   ["--device", "cpu", "train-mf", "inter.csv", "-o", "s.npz",
+                    "--dim", "8", "--solver", "sgd", "--mesh", "data=2"])
+    assert rc == 0
+    inter = mf.load_interactions(str(tdir / "inter.csv"))
+    train, held, seen = mf.split_leave_k_out(inter, k=2, seed=0)
+    mesh = make_mesh(MeshConfig(data=2), devices=["cpu"] * 2)
+    u, i = mf.train_sgd(train, MFConfig(embedding_dim=8), num_steps=2000,
+                        mesh=mesh)
+    m = mf.evaluate_ranking(u, i, held, k=10, train_mask=seen, device="cpu")
+    assert out.strip() == (f"recall@10={m['recall@k']:.4f} "
+                           f"ndcg@10={m['ndcg@k']:.4f} "
+                           f"({m['num_eval_users']} users)")
+    with np.load(tdir / "s.npz") as z:
+        np.testing.assert_array_equal(z["user_factors"], u)
 
 
 TRAIN_TT = ["train-two-tower", "-o", "tt.npz", "--dim", "8", "--steps", "30",
             "--batch-size", "32", "--lr", "0.003"]
+
+
+def test_train_two_tower_over_a_data_mesh(monkeypatch, capsys, dirs):
+    """`train-two-tower --mesh data=4` (8 pairs per cell) writes the model
+    that the library's data-parallel `train` gives, and its final loss."""
+    from spotify_recommender_tpu_torch.core.config import (
+        MeshConfig,
+        TwoTowerConfig,
+    )
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+    from spotify_recommender_tpu_torch.models import two_tower
+
+    _both(monkeypatch, capsys, dirs, ["--preprocess", str(dirs[0])])
+    tdir = dirs[2]
+    rc, out = _run(monkeypatch, capsys, tdir, tcli.main, tcli.BANNER,
+                   ["--device", "cpu", *TRAIN_TT, "--mesh", "data=4"])
+    assert rc == 0
+    cat = TCatalog.load(str(tdir / tcli.DEFAULT_CATALOG))
+    cfg = TwoTowerConfig(embedding_dim=8, num_steps=30, batch_size=32,
+                         learning_rate=0.003)
+    res = two_tower.train(cat.features, cat.genre_ids, cfg,
+                          mesh=make_mesh(MeshConfig(data=4),
+                                         devices=["cpu"] * 4))
+    assert out.strip() == f"two-tower trained: final loss {res.losses[-1]:.4f}"
+    params, _ = two_tower.load_model(str(tdir / "tt.npz"))
+    for name, p in res.params.items():
+        assert torch.equal(params[name], p)
 
 
 def test_train_two_tower_then_embed_and_recommend(monkeypatch, capsys, dirs):

@@ -745,3 +745,109 @@ def test_sharded_backends_on_the_card_equal_single_card(cuda, backend, shards):
     assert not bool((i == excl[:, None]).any())
     s1, i1 = sc.retrieve(q[:1], 10, excl[:1])
     assert torch.equal(i1, ri[:1])
+
+
+# --------------------------------------------------------------------------
+# The training half of sharding, autotune, debug, the graft entry
+# --------------------------------------------------------------------------
+
+
+def _card_mesh(data=1, catalog=1):
+    from spotify_recommender_tpu_torch.core.config import MeshConfig
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+
+    return make_mesh(MeshConfig(data=data, catalog=catalog),
+                     devices=[torch.device("cuda:0")] * (data * catalog))
+
+
+def test_sharded_embedding_lookup_and_gradient_on_the_card(cuda):
+    from spotify_recommender_tpu_torch.parallel.embedding import (
+        ShardedEmbeddingTable,
+    )
+
+    rng = np.random.default_rng(0)
+    dense = torch.from_numpy(rng.standard_normal((10_003, 16)).astype(
+        np.float32)).to(cuda)
+    table = ShardedEmbeddingTable(dense, _card_mesh(catalog=4))
+    ids = torch.from_numpy(rng.choice(10_003, 512, replace=False)).to(cuda)
+    assert torch.equal(table.lookup(ids), dense[ids])
+    with pytest.raises(IndexError):
+        table.lookup(torch.tensor([10_003], device=cuda))
+    up = torch.randn((512, 16), device=cuda)
+    for sh in table.shards:
+        sh.requires_grad_(True)
+    (table.lookup(ids) * up).sum().backward()
+    want = torch.zeros((table.padded_vocab, 16), device=cuda).index_add_(
+        0, ids, up)
+    rows = table.padded_vocab // 4
+    for c, sh in enumerate(table.shards):
+        assert torch.equal(sh.grad, want[c * rows:(c + 1) * rows])
+
+
+@pytest.mark.parametrize("shard_tables,atol", [(False, 1e-5), (True, 1e-4)])
+def test_sharded_als_on_the_card_near_single_card(cuda, shard_tables, atol):
+    from spotify_recommender_tpu_torch.core.config import MFConfig
+    from spotify_recommender_tpu_torch.models import mf
+
+    inter, _, _ = mf.synthetic_interactions(300, 200, 6, density=0.05, seed=1)
+    cfg = MFConfig(embedding_dim=16, num_iterations=3, reg=0.05, alpha=10.0)
+    u1, i1 = mf.train_als(inter, cfg, device=cuda)
+    u, i = mf.train_als(inter, cfg, mesh=_card_mesh(catalog=4),
+                        shard_tables=shard_tables)
+    np.testing.assert_allclose(u, u1, rtol=0, atol=atol)
+    np.testing.assert_allclose(i, i1, rtol=0, atol=atol)
+
+
+def test_dp_steps_on_the_card_near_single_card(cuda):
+    from spotify_recommender_tpu_torch.core.config import MFConfig, TwoTowerConfig
+    from spotify_recommender_tpu_torch.models import mf, two_tower
+
+    inter, _, _ = mf.synthetic_interactions(300, 200, 6, density=0.05, seed=2)
+    cfg = MFConfig(embedding_dim=16, batch_size=1024, learning_rate=0.01)
+    a, b = [], []
+    mf.train_sgd(inter, cfg, num_steps=10, device=cuda, losses=a)
+    mf.train_sgd(inter, cfg, num_steps=10, mesh=_card_mesh(data=4), losses=b)
+    np.testing.assert_allclose(b, a, rtol=1e-5, atol=0)
+    rng = np.random.default_rng(0)
+    feats = rng.random((400, 12)).astype(np.float32)
+    genres = (np.arange(400) % 4).astype(np.int32)
+    tcfg = TwoTowerConfig(embedding_dim=16, hidden_dims=(32,), batch_size=64,
+                          num_steps=3, learning_rate=3e-3)
+    s1, s4 = {}, {}
+    two_tower.train(feats, genres, tcfg, device=cuda, stats=s1)
+    two_tower.train(feats, genres, tcfg, mesh=_card_mesh(data=4), stats=s4)
+    np.testing.assert_allclose(s4["loss"], s1["loss"], rtol=0, atol=1e-5)
+
+
+def test_autotune_on_the_card(cuda, tmp_path, monkeypatch):
+    from spotify_recommender_tpu_torch.ops import autotune
+
+    monkeypatch.setenv("SRT_AUTOTUNE_CACHE", str(tmp_path / "at.json"))
+    before = scan_v3.launches
+    res = autotune.tune(n=50_000, b=64, k=10, iters=2, reps=1, device=cuda,
+                        grid=((2, 3, 128, 256, 8192), (2, 3, 256, 256, 8192),
+                              (2, 3, 2048, 256, 8192)))
+    assert scan_v3.launches > before
+    [failed] = res.failed              # W = 2048: the kernels take W <= 1024
+    assert failed["scan_bins"] == 2048 and "ValueError" in failed["error"]
+    assert res.saved and autotune.load_tuned(50_000, 64, 12, 10,
+                                             device=cuda) is not None
+
+
+def test_nan_guard_and_graft_entry_on_the_card(cuda):
+    from spotify_recommender_tpu_torch import graft_entry
+    from spotify_recommender_tpu_torch.core.debug import nan_guard
+
+    x = torch.tensor([1.0, 0.0], device=cuda)
+    with pytest.raises(FloatingPointError):
+        with nan_guard():
+            x / x
+    before = scan_v3.launches
+    fn, args = graft_entry.entry()
+    s, i = fn(*args)
+    assert scan_v3.launches > before
+    want = CertifiedRetriever(args[3].cpu().numpy(), None,
+                              RetrievalConfig(scan_bins=256, prefilter=32),
+                              cuda)(args[0], 10, args[6])
+    assert torch.equal(i, want[1]) and torch.equal(s, want[0])
+    graft_entry.dryrun_multichip(2)

@@ -223,15 +223,41 @@ def test_train_als_stats_and_callback():
                zip(stats["chol_ms"], stats["user_ms"], stats["item_ms"]))
 
 
-@pytest.mark.parametrize("train,kw", [
-    (mf.train_als, {"mesh": object()}),
-    (mf.train_als, {"shard_tables": True}),
-    (mf.train_sgd, {"mesh": object()}),
-])
-def test_a_mesh_raises(train, kw):
+def _mesh(data=1, catalog=1):
+    from spotify_recommender_tpu_torch.core.config import MeshConfig
+    from spotify_recommender_tpu_torch.core.mesh import make_mesh
+
+    return make_mesh(MeshConfig(data=data, catalog=catalog),
+                     devices=[CPU] * (data * catalog))
+
+
+def _dp_step_of_an_odd_batch():
     inter, _, _ = mf.synthetic_interactions(50, 30, 4, density=0.1, seed=0)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 1 item 6"):
-        train(inter, MFConfig(embedding_dim=4), device=CPU, **kw)
+    users = torch.zeros((50, 4), requires_grad=True)
+    items = torch.zeros((30, 4), requires_grad=True)
+    state = mf.SGDState(users, items, torch.optim.Adam([users, items]))
+    batch = {"user": torch.zeros(10, dtype=torch.long),
+             "item": torch.zeros(10, dtype=torch.long), "conf": torch.ones(10),
+             "neg": torch.zeros((10, 2), dtype=torch.long)}
+    mf.sgd_step(state, batch, 0.01, 1.0, _mesh(data=4))
+
+
+@pytest.mark.parametrize("call,match", [
+    # iALS++ is single-device, as in the JAX package (mf.py:438-442)
+    (lambda inter: mf.train_als(inter, MFConfig(embedding_dim=4),
+                                mesh=_mesh(catalog=2), subspace=2),
+     "single-device"),
+    (lambda inter: mf.train_als(inter, MFConfig(embedding_dim=4),
+                                mesh=_mesh(catalog=2), shard_tables=True,
+                                subspace=2), "single-device"),
+    # a data-parallel step's batch must divide the data axis (JAX's
+    # shard_map refuses it too)
+    (lambda inter: _dp_step_of_an_odd_batch(), "must divide"),
+])
+def test_a_mesh_raises(call, match):
+    inter, _, _ = mf.synthetic_interactions(50, 30, 4, density=0.1, seed=0)
+    with pytest.raises(ValueError, match=match):
+        call(inter)
 
 
 # -------------------------------------------------------------- SGD
