@@ -4,8 +4,9 @@ The sources under `spotify_recommender_tpu_torch/csrc/` go into two shared
 libraries with a plain C interface, each built at its own first use:
 
     SERVING      split_bf16x2.cu, scan_v3.cu, scan_v2.cu, fused_topk.cu:
-                 the kernels of the user paths (ops/cuda/split, scan_v3,
-                 scan_v2, fused), libsrt_serving.so
+                 the kernels of the user paths (ops/cuda/split: the query
+                 prologue and the split; scan_v3, scan_v2, fused),
+                 libsrt_serving.so
     EXPERIMENTS  proto_scans.cu, ablation_r2.cu: the probes of
                  `experiments/` (ops/cuda/proto_scans, ablation),
                  libsrt_experiments.so
@@ -83,6 +84,8 @@ SERVING = Library("serving", (
     "srt_fused_blocks_per_sm": (_I64, _I64, _I64, _I64, _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
+    # q, qn, q2, b, f, stream
+    "srt_query_prologue": (_P, _P, _P, _I64, _I64, _P),
     # q2, b, f, ft, ft_stride, np, ncols, w, depth, topc, slice, wv, wi, wb,
     # ov, oi, ob, stream
     "srt_scan_v3": (_P, _I64, _I32, _P, _I64, _I64, _I64, _I32, _I32, _I32,

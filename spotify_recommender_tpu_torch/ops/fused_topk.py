@@ -13,8 +13,9 @@ prefilter with an exact fp32 rerank.  The JAX package's `_bucket_batch` /
 The certified tier ports the JAX package's
 (spotify_recommender_tpu/ops/pallas/fused_topk.py:787-831, :1273-2063):
 
-    query norms + unit vectors          torch ops
-    split into bf16 hi/lo planes        kernel 2 (ops/cuda/split.py)
+    query norms                         torch op (`similarity.row_norms`)
+    unit queries, bf16 hi/lo split,     kernel 2, one launch
+    the scan's [qh, ql, ql, qh]         (ops/cuda/split.query_prologue)
     bin scan -> top-C                   scan="v3": kernel 1, epilogue-free,
                                         depth 2 (ops/cuda/scan_v3.py);
                                         scan="v2": kernel 4, cosine epilogue
@@ -76,7 +77,7 @@ from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
     scan_v3,
 )
 from spotify_recommender_tpu_torch.ops.cuda.split import (
-    split_bf16x2,
+    query_prologue,
     split_bf16x2_plain,
 )
 from spotify_recommender_tpu_torch.ops.topk import topk_stable
@@ -137,6 +138,14 @@ def query_inputs(
     return q, excl
 
 
+def prepare_queries(queries: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(qn (B,), q2 (B, 4F) bf16) of (B, F) contiguous fp32 queries: the
+    norms the rerank and the oracle read (`similarity.row_norms`) and the
+    bin scans' operand, one launch of kernel 2 (`query_prologue`)."""
+    qn = similarity.row_norms(queries)
+    return qn, query_prologue(queries, qn)
+
+
 def prepare_and_call(
     queries: torch.Tensor,       # (B, F) fp32 raw queries
     exclude_rows: torch.Tensor,  # (B,) int64, columns of features_t, -1 = none
@@ -152,17 +161,22 @@ def prepare_and_call(
     """Query norms, prenormalized queries in fast mode, the queries in the
     catalog's storage, then kernel 3 (`_prepare_and_call`,
     fused_topk.py:419).  The kernel always sees the raw norms: its 1e-8
-    guard is the reference's in every mode."""
-    qn = similarity.row_norms(queries)
-    if not exact:
-        # zero-norm queries stay zero: score 0, as the guard gives
-        queries = queries / qn.clamp_min(1e-30)[:, None]
+    guard is the reference's in every mode.  bfloat16x2 queries are the
+    unit queries' [qh, ql, ql, qh] (kernel 2's prologue), so that storage
+    takes `exact=False`, as `FusedRetriever` requires."""
     if dtype == "bfloat16x2":
+        if exact:
+            raise ValueError("bfloat16x2 queries are prenormalized: "
+                             "exact=False")
         # [qh, ql, ql, qh] against [hi; lo]: qh·hi + ql·lo + ql·hi + qh·lo
-        qh, ql = split_bf16x2(queries.contiguous())
-        queries = torch.cat([qh, ql, ql, qh], dim=1)
-    elif dtype == "bfloat16":
-        queries = queries.to(torch.bfloat16)     # round to nearest even
+        qn, queries = prepare_queries(queries.contiguous())
+    else:
+        qn = similarity.row_norms(queries)
+        if not exact:
+            # zero-norm queries stay zero: score 0, as the guard gives
+            queries = queries / qn.clamp_min(1e-30)[:, None]
+        if dtype == "bfloat16":
+            queries = queries.to(torch.bfloat16)     # round to nearest even
     return fused_topk(queries.contiguous(), qn, features_t, norms,
                       exclude_rows, valid, k=k, exact=exact, eps=eps)
 
@@ -711,12 +725,15 @@ class CertifiedRetriever:
         retriever's device."""
         return self.finish(self.start(queries, k, exclude_rows))
 
-    def start(self, queries, k: int, exclude_rows=None) -> "CertifiedBatch":
-        """A batch's work up to its certificate (split, scan, rerank),
+    def start(self, queries, k: int, exclude_rows=None,
+              prepared=None) -> "CertifiedBatch":
+        """A batch's work up to its certificate (prologue, scan, rerank),
         issued on the device without reading anything back; `finish`
         reads the failures and serves them.  A sharded catalog starts every
         shard before it finishes any, so the shards of distinct cards
-        overlap."""
+        overlap, and hands each shard the (qn, q2) of `prepare_queries`
+        that it made once for the shard's device and queries
+        (`prepared`)."""
         queries, excl = query_inputs(queries, exclude_rows, self.device,
                                      self.feature_dim)
         dl = self.layout
@@ -725,11 +742,7 @@ class CertifiedRetriever:
             return CertifiedBatch(queries, excl, k, None, None,
                                   *self._oracle(queries, k, excl), None)
         c = self._topc(k)
-        qn = similarity.row_norms(queries)
-        qunit = queries / qn.clamp_min(1e-30)[:, None]
-        qh, ql = split_bf16x2(qunit)
-        # [qh,ql | ql,qh] against [hi;lo]: qh·hi + ql·lo + ql·hi + qh·lo
-        q2 = torch.cat([qh, ql, ql, qh], dim=1)
+        qn, q2 = prepare_queries(queries) if prepared is None else prepared
         if dl.scan == "v2":
             a_s, cand, cb = scan_v2(q2, qn, dl.ft, dl.nrm_row, excl,
                                     self.num_items, w=dl.w,
@@ -807,8 +820,8 @@ def approx_retrieve(
     depth: int,
     eps: float,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Approximate top-k (`_approx_retrieve`, fused_topk.py:678): the unit
-    queries' split (kernel 2), one v3 bin scan of the `nvalid` real columns
+    """Approximate top-k (`_approx_retrieve`, fused_topk.py:678): the
+    query prologue (kernel 2), one v3 bin scan of the `nvalid` real columns
     to the top-`c` (kernel 1), then the candidates masked and cut to k; no
     rerank, no certificate.
 
@@ -825,10 +838,7 @@ def approx_retrieve(
       starves k) is (-inf, -1), never the excluded row.
     The top-k is stable over the scan's order (value descending, slot
     ascending), as `lax.top_k` there."""
-    qn = similarity.row_norms(queries)
-    qh, ql = split_bf16x2(queries / qn.clamp_min(1e-30)[:, None])
-    # [qh,ql | ql,qh] against [hi;lo]: qh·hi + ql·lo + ql·hi + qh·lo
-    q2 = torch.cat([qh, ql, ql, qh], dim=1)
+    qn, q2 = prepare_queries(queries)
     a_s, cand, _ = scan_v3(q2, ft, w=w, depth=depth, topc=c, ncols=nvalid)
     cand = cand.long()
     bad = (cand < 0) | (cand >= nvalid) | (cand == excl[:, None])

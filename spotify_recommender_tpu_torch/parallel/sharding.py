@@ -25,11 +25,15 @@ Three backends, as in the JAX package:
 - "pallas" (`use_pallas=True`): kernel 3 per shard (`FusedRetriever` over
   the shard's columns of the JAX package's padded layout, :353-375);
 - "certified" (`use_certified=True`): the certified tier per shard
-  (`CertifiedRetriever`: kernels 2 and 1, rerank, certificate, depth-3
-  rescan, oracle fallback) over the shard's slice of
+  (`CertifiedRetriever`: kernel 1, rerank, certificate, depth-3 rescan,
+  oracle fallback) over the shard's slice of
   `build_certified_layout(n_shards=S)`, every shard given the GLOBAL
   minimum nonzero norm (a shard's own minimum could certify unsoundly),
-  its valid count as kernel 1's `ncols`.  Each shard's own fallback keeps
+  its valid count as kernel 1's `ncols`.  The queries' norms and the
+  scans' operand (kernel 2's prologue, `prepare_queries`) are made once
+  per device and batch slice and shared by that device's shards, as one
+  device of the JAX package's shard_map prepares them once for all the
+  shards it holds.  Each shard's own fallback keeps
   its local top-k exact, so the merge is exact: the JAX package's
   whole-batch oracle redo on a fallback overflow (:587-601) has no
   counterpart, because the port's certified tier has no fallback cap.
@@ -68,6 +72,7 @@ from spotify_recommender_tpu_torch.ops.fused_topk import (
     DeviceLayout,
     FusedRetriever,
     build_certified_layout,
+    prepare_queries,
 )
 from spotify_recommender_tpu_torch.ops.topk import merge_topk_deterministic
 
@@ -329,13 +334,17 @@ class ShardedCatalog:
             dev = self.mesh.devices[d, c]
             if (d, str(dev)) not in inputs:
                 sl = slice(d * b_local, (d + 1) * b_local)
-                inputs[(d, str(dev))] = (q[sl].to(dev), excl[sl].to(dev))
-            qd, ed = inputs[(d, str(dev))]
+                qd = q[sl].to(dev).contiguous()
+                # the certified shards of this device share one prologue
+                inputs[(d, str(dev))] = (
+                    qd, excl[sl].to(dev),
+                    prepare_queries(qd) if self.use_certified else None)
+            qd, ed, prep = inputs[(d, str(dev))]
             off = c * self.n_local
             # global exclusions in this shard's frame (-1 elsewhere)
             el = torch.where((ed >= off) & (ed < off + self.n_local),
                              ed - off, -1)
-            started.append((off, self._start(c, dev, qd, el, k_local)))
+            started.append((off, self._start(c, dev, qd, el, k_local, prep)))
         parts_s, parts_i = [], []
         for off, work in started:
             s, i = self._finish(work, b_local, k_local)
@@ -366,12 +375,12 @@ class ShardedCatalog:
             out_i.append(mi)
         return torch.cat(out_s), torch.cat(out_i)
 
-    def _start(self, c, dev, q, excl, k):
+    def _start(self, c, dev, q, excl, k, prepared):
         shard = self._shards.get((c, str(dev)))
         if shard is None:            # a shard of padding only
             return None
         if self.use_certified:
-            return shard, shard.start(q, k, excl)
+            return shard, shard.start(q, k, excl, prepared)
         if self.use_pallas:
             return shard(q, k, excl)
         feats, nrm = shard

@@ -35,11 +35,14 @@ from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
     scan_v3_plain,
 )
 from spotify_recommender_tpu_torch.ops.cuda.split import (
+    query_prologue,
+    query_prologue_plain,
     split_bf16x2,
     split_bf16x2_plain,
 )
 from spotify_recommender_tpu_torch.ops.fused_topk import (
     BF16X2_EPS,
+    ApproxRetriever,
     CertifiedRetriever,
     FusedRetriever,
     PrefilterRetriever,
@@ -82,6 +85,52 @@ def test_split_bitwise_equals_plain(cuda):
     unit[7:10] = False
     res = (hi.float() + lo.float() - x)[unit].abs().max().item()
     assert res < 1e-5, res      # ~2^-18 on unit vectors; ~2^-9 if lo were lost
+
+
+@pytest.mark.parametrize("f", [12, 64])
+@pytest.mark.parametrize("b", [1, 7, 1024])
+def test_query_prologue_bitwise_equals_plain(cuda, b, f):
+    """Kernel 2's prologue against its plain version, NaN and inf queries
+    and a NaN norm included: every bit, NaN payloads too."""
+    rng = np.random.default_rng(b * f)
+    q = rng.standard_normal((b, f)).astype(np.float32)
+    if b >= 7:
+        q[1] *= np.float32(1e-30)                   # tiny row
+        q[2] *= np.float32(3e37)                    # huge row
+        q[3] = 0.0                                  # zero row
+        q[4, 0] = np.nan                            # NaN query
+        q[5, 1] = np.inf                            # inf query
+        q[6, 1:] *= np.float32(1e-36)               # subnormal lo values
+    q = torch.from_numpy(q).to(cuda)
+    qn = similarity.row_norms(q)
+    if b >= 7:
+        qn[0] = float("nan")                        # a NaN norm propagates
+    before = query_prologue.launches
+    out = query_prologue(q, qn)
+    torch.cuda.synchronize()
+    assert query_prologue.launches == before + 1
+    ref = query_prologue_plain(q, qn)
+    assert out.shape == (b, 4 * f) and out.dtype == torch.bfloat16
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+def test_query_prologue_rejects_bad_inputs(cuda):
+    q = torch.ones((8, 12), device=cuda)
+    qn = similarity.row_norms(q)
+    before = query_prologue.launches
+    with pytest.raises(TypeError):
+        query_prologue(q.half(), qn)
+    with pytest.raises(TypeError):
+        query_prologue(q, qn.double())
+    with pytest.raises(ValueError):                 # non-contiguous queries
+        query_prologue(torch.ones((12, 8), device=cuda).t(), qn)
+    with pytest.raises(ValueError):                 # non-contiguous norms
+        query_prologue(q, torch.ones((8, 2), device=cuda)[:, 0])
+    with pytest.raises(ValueError):                 # norms on the host
+        query_prologue(q, qn.cpu())
+    with pytest.raises(ValueError):
+        query_prologue(q, qn[:4])
+    assert query_prologue.launches == before
 
 
 def _scan_inputs(cuda, n, b, seed, config=RetrievalConfig()):
@@ -208,6 +257,23 @@ def test_certified_matches_oracle_on_card(cuda):
     f = torch.from_numpy(feats).to(cuda)
     assert_certified_contract(s, i, f[torch.from_numpy(rows).to(cuda)], f,
                               cr.layout.norms1d, rows)
+
+
+def test_tiers_launch_one_prologue_per_batch(cuda):
+    """Certified, approx and fused-bf16x2 batches each launch kernel 2's
+    prologue once and the bare split never."""
+    rng = np.random.default_rng(9)
+    feats = rng.random((20011, 12), dtype=np.float32)
+    rows = rng.integers(0, 20011, 32)
+    tiers = (CertifiedRetriever(feats, None, None, cuda),
+             ApproxRetriever(feats, None, None, cuda),
+             FusedRetriever(feats, None, RetrievalConfig(
+                 dtype="bfloat16x2", exact_scores=False), cuda))
+    for tier in tiers:
+        query_prologue.launches = split_bf16x2.launches = 0
+        tier(feats[rows], 10, rows)
+        torch.cuda.synchronize()
+        assert (query_prologue.launches, split_bf16x2.launches) == (1, 0)
 
 
 @pytest.mark.parametrize("config", [RetrievalConfig(scan="v2"),
@@ -714,7 +780,8 @@ def test_native_parser_builds_and_parses_on_the_card_host(cuda, tmp_path):
 @pytest.mark.parametrize("backend", ["certified", "pallas"])
 def test_sharded_backends_on_the_card_equal_single_card(cuda, backend, shards):
     """S shards on the one card (a mesh over a repeated device): the
-    certified backend (kernels 2 and 1 per shard) bitwise the single-card
+    certified backend (one prologue for the card, kernel 1 per shard)
+    bitwise the single-card
     certified tier, kernel 3 per shard (exact fp32) its indices and
     scores; launches counted per shard; exclusions at the shard borders."""
     from spotify_recommender_tpu_torch.core.config import MeshConfig
@@ -733,11 +800,12 @@ def test_sharded_backends_on_the_card_equal_single_card(cuda, backend, shards):
     rows[:len(border)] = border
     q = torch.from_numpy(feats[rows]).to(cuda)
     excl = torch.from_numpy(rows).to(cuda)
-    split_bf16x2.launches = scan_v3.launches = fused_topk.launches = 0
+    query_prologue.launches = scan_v3.launches = fused_topk.launches = 0
     s, i = sc.retrieve(q, 10, excl)
     torch.cuda.synchronize()
     if backend == "certified":
-        assert split_bf16x2.launches == shards and scan_v3.launches >= shards
+        # one prologue for the one device, shared by its shards
+        assert query_prologue.launches == 1 and scan_v3.launches >= shards
     else:
         assert fused_topk.launches == shards
     rs, ri = CertifiedRetriever(feats, norms, None, cuda)(q, 10, excl)

@@ -4,6 +4,7 @@ tests/test_debug.py (assert_finite, nan_guard), with the JAX helpers run
 on the same inputs where they name a path or return a value."""
 
 import json
+import logging
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +14,13 @@ import torch
 
 from spotify_recommender_tpu.core import debug as jdebug
 from spotify_recommender_tpu_torch.core.debug import assert_finite, nan_guard
-from spotify_recommender_tpu_torch.core.profiling import annotate, timed, trace
+from spotify_recommender_tpu_torch.core.profiling import (
+    annotate,
+    check_device_events,
+    device_events,
+    timed,
+    trace,
+)
 
 
 def test_timed_returns_median_and_output():
@@ -34,6 +41,56 @@ def test_annotation_scope_is_a_span_of_the_trace(tmp_path):
     names = {e.get("name") for e in events}
     assert "test-span" in names and "aten::sum" in names
     assert any(e.key == "aten::sum" for e in prof.key_averages())
+
+
+def test_a_cpu_trace_writes_the_span_and_no_device_error(tmp_path, caplog):
+    """On the CPU the trace file holds the scope's span and ops, no CUDA
+    activity is requested, and so no device-event error is logged."""
+    logger = logging.getLogger("spotify_recommender_tpu_torch")
+    logger.addHandler(caplog.handler)
+    try:
+        with trace(str(tmp_path)) as prof:
+            with annotate("certified_batch"):
+                torch.ones(8).sum()
+    finally:
+        logger.removeHandler(caplog.handler)
+    [path] = tmp_path.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    assert sum(e.get("name") == "certified_batch" for e in events) >= 1
+    assert device_events(prof) == 0
+    assert "recorded no device event" not in caplog.text
+
+
+class _Event:
+    def __init__(self, device_type, is_user_annotation=False):
+        self.device_type = device_type
+        self.is_user_annotation = is_user_annotation
+
+
+class _Prof:
+    def __init__(self, *types, spans=0):
+        self._events = [_Event(t) for t in types] + [
+            _Event(torch.autograd.DeviceType.CUDA, True)] * spans
+
+    def events(self):
+        return self._events
+
+
+def test_a_trace_without_device_events_logs_an_error(caplog):
+    """What `trace` checks after a session that requested CUDA activity:
+    no device event is an error in the log, one is not; a span projected
+    onto the device's timeline (the schedule's step) is no device event."""
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    logger = logging.getLogger("spotify_recommender_tpu_torch")
+    logger.addHandler(caplog.handler)
+    try:
+        assert check_device_events(_Prof(cpu, cpu, spans=1), "d1") == 0
+        assert "trace in d1 requested CUDA activity" in caplog.text
+        caplog.clear()
+        assert check_device_events(_Prof(cpu, cuda, cuda), "d2") == 2
+        assert "requested CUDA activity" not in caplog.text
+    finally:
+        logger.removeHandler(caplog.handler)
 
 
 def test_annotate_outside_a_trace_is_harmless():
