@@ -32,9 +32,14 @@ its plain torch version on the card, runs the reference-style CLI on a
   instances) and `PrefilterRetriever`, at the phase-6 cell;
 - phase 12: TPU kernels 9-12 (the prototype bin scans) against their plain
   versions at 1024 x 1M, and kernels 10-11 also at the 10M x 1024 layout
-  (and B = 1) that `kernel_r3.main` runs them on; then the three
-  experiment paths that run them:
-  `experiments.kernel_r3.main` at 10M x 1024 (and B = 1),
+  (and B = 1) that `kernel_r3.main` runs them on: kernel 10 (`mxu_only`,
+  on the tensor cores; phase 2 fails unless its SASS holds HGMMA and
+  UTMALDG) within its derived tolerance qw * 2^-22 * S, the rest bitwise;
+  kernel 10's device time, ALU floor and `torch.mm` yardstick; then the
+  three experiment paths that run them:
+  `experiments.kernel_r3.main` at 10M x 1024 (and B = 1), then its
+  `accumulation_study` (1.0e8 single dots against fp64, and a rounding
+  probe),
   `experiments.kernel_ablation_r2e.main` and
   `experiments.certified_proto.main` at 1M x 1024;
 - phase 13: TPU kernels 5-8 (kernel 3's round-2 ablation bodies): every
@@ -290,6 +295,10 @@ CSRC = "spotify_recommender_tpu_torch/csrc"
 # once) over the memory rate
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 HBM_BYTES_PER_S = 3.35e12
+# fp32 min / max an SM issues per clock (the CUDA C++ Programming Guide's
+# arithmetic-instruction throughput table, compute capability 9.0): kernel
+# 10's epilogue floor
+FMAX_PER_CLOCK = 64
 R3_N = 10_000_000          # kernel_r3.main's catalog
 PLAIN_CHUNK = 1 << 20      # columns per chunk of a plain version at R3_N
 
@@ -513,6 +522,50 @@ def check_bitwise(out, plain, what: str) -> float:
               f"{what}: kernel differs from plain in "
               f"{(o != p).sum().item()} entries")
     return max(finite_diff(o.float(), p.float()) for o, p in zip(out, plain))
+
+
+def check_tolerance(out, plain, tol, what: str) -> float:
+    """A kernel's output within `tol` of its plain version's, entry by
+    entry; returns the max abs difference."""
+    torch.cuda.synchronize()
+    diff = (out - plain).abs()
+    check(out.shape == plain.shape and bool((diff <= tol).all()),
+          f"{what}: kernel differs from plain by more than its tolerance in "
+          f"{(diff > tol).sum().item()} entries")
+    return diff.max().item()
+
+
+def mxu_extras(q: torch.Tensor, ft: torch.Tensor) -> dict:
+    """Kernel 10's further keys at (q, ft): `device_ms` (torch.profiler:
+    the wgmma kernel and the slices' max merge), `alu_floor_ms` (its
+    epilogue's B * Np fmax at FMAX_PER_CLOCK per SM and the card's max SM
+    clock) and `library_ms` of torch.mm(q, ft[:qw]) into fp32, the dot
+    alone, which writes the whole (B, Np) product: a yardstick, not the
+    same function."""
+    _, per, _ = profile_batch(lambda: proto_scans.mxu_only(q, ft), reps=10)
+    device_ms = sum(ms for nm, ms in per.items()
+                    if "mxu_wgmma_kernel" in nm or "max_merge" in nm)
+    check(device_ms > 0, f"mxu_only: the profiler saw no device time ({per})")
+    mhz = float(nvidia_smi("clocks.max.sm").splitlines()[0].split()[0])
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    alu_ms = q.shape[0] * ft.shape[1] / (sms * FMAX_PER_CLOCK * mhz * 1e6) * 1e3
+    lib_ms, lib_call = library_mm(q, ft[:q.shape[1]])
+    return dict(device_ms=device_ms, alu_floor_ms=alu_ms, library_ms=lib_ms,
+                library=lib_call)
+
+
+def sass_counts(lib_path: Path, name: str) -> dict:
+    """{function: (HGMMA, UTMALDG) instruction counts} of the functions of
+    a built library whose name holds `name`, from `cuobjdump -sass`."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        fn = part.split("\n", 1)[0].strip()
+        if name in fn:
+            out[fn] = (part.count("HGMMA"), part.count("UTMALDG"))
+    return out
 
 
 def finite_diff(a, b) -> float:
@@ -2404,11 +2457,19 @@ def main() -> None:
                        if nm.startswith("fused_partial_kernel")]
     check(len(fused_regs) == 9 and not any(sp for *_, sp in fused_regs),
           f"kernel 3's instances: {fused_regs} (9 expected, none spilling)")
+    mxu_sass = sass_counts(built[_build.EXPERIMENTS.name][0], "mxu_wgmma_kernel")
+    check(len(mxu_sass) == 4 and all(h > 0 and t > 0
+                                     for h, t in mxu_sass.values()),
+          f"kernel 10's instances: {mxu_sass} (4 expected, each with HGMMA "
+          f"and UTMALDG)")
     print("phase 2 build (both libraries and the native csv parser at "
           "once): " + "; ".join(line) + f"; {native_ingest.LIB_NAME} (g++) in "
           f"{gxx_s:.1f} s"
           + "; kernel 3 (fused_partial_kernel<KPL,EXACT>) registers: "
-          + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill")
+          + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill"
+          + "; kernel 10 (mxu_wgmma_kernel<k steps>) SASS HGMMA / UTMALDG: "
+          + ", ".join(f"{_short_name(nm)} {h} / {t}"
+                      for nm, (h, t) in mxu_sass.items()))
 
     # ---- 3. split: kernel vs plain, bitwise
     rng = np.random.default_rng(0)
@@ -2994,9 +3055,9 @@ def main() -> None:
     q24 = torch.cat(split_bf16x2_plain(qunit), dim=1)
     qn1, excl1 = qn[:, None], excl.int()[:, None]
     errs = {}
-    errs["mxu_only"] = check_bitwise(
-        (proto_scans.mxu_only(q48, ft48),),
-        (proto_scans.mxu_only_plain(q48, ft48),), "mxu_only")
+    errs["mxu_only"] = check_tolerance(
+        proto_scans.mxu_only(q48, ft48), proto_scans.mxu_only_plain(q48, ft48),
+        proto_scans.mxu_only_tolerance(q48, ft48), "mxu_only")
     for w in (256, 512):
         single = proto_scans.scan_d1(q48, ft48, w=w)
         errs["scan_d1"] = max(errs.get("scan_d1", 0.0), check_bitwise(
@@ -3025,8 +3086,9 @@ def main() -> None:
     mxu_ref = torch.stack([
         proto_scans.mxu_only_plain(q10, ft10[:, c:c + PLAIN_CHUNK])
         for c in range(0, ft10.shape[1], PLAIN_CHUNK)]).amax(0)
-    errs["mxu_only"] = max(errs["mxu_only"], check_bitwise(
-        (proto_scans.mxu_only(q10, ft10),), (mxu_ref,), f"mxu_only {R3_N}"))
+    errs["mxu_only"] = max(errs["mxu_only"], check_tolerance(
+        proto_scans.mxu_only(q10, ft10), mxu_ref,
+        proto_scans.mxu_only_tolerance(q10, ft10), f"mxu_only {R3_N}"))
     for qq in (q10, q10[:1]):
         ref = proto_scans.scan_d1_split_plain(qq, ft10, w=kernel_r3.W,
                                               slice_=PLAIN_CHUNK)
@@ -3067,6 +3129,8 @@ def main() -> None:
             **bound(dot_flops(qq, ftq, qq.shape[1]), "bf16", *inputs, *out),
             library_ms=None,
         )
+    kernels["mxu_only"].update(source=f"{CSRC}/mxu_wgmma.cu",
+                               **mxu_extras(q48, ft48))
     del q48, ft48, ft24, nrm24, calls, args3, args24
     t_cmp = time.perf_counter() - t12
 
@@ -3082,6 +3146,12 @@ def main() -> None:
         launches[fn.__name__] = fn.launches
     check(r3["split_equal"] == [True, True],
           f"kernel_r3: scan_d1_split differs from scan_d1 {r3['split_equal']}")
+    study = kernel_r3.accumulation_study(DEV)
+    check(all(study[kind]["within"] for kind in kernel_r3.STUDY_SETS),
+          f"mxu_only's accumulation study: a dot past qw 2^-22 S of the plain "
+          f"version's: {study}")
+    check(sum(study[kind]["dots"] for kind in kernel_r3.STUDY_SETS) >= 1e8,
+          f"the accumulation study took fewer than 1e8 dots: {study}")
     proto_scans.scan3.launches = 0
     with contextlib.redirect_stdout(quiet):
         r2e = kernel_ablation_r2e.main(n=n, b=b, device=DEV)
@@ -3101,12 +3171,17 @@ def main() -> None:
           f"certified_proto: {cpr}")
     gbps = {nm: r3["catalog_bytes"] / r3[nm] / 1e6
             for nm in ("mxu_only", "scan_d3_topc", "scan_d1", "scan_d1_split")}
+    km = kernels["mxu_only"]
     print(f"phase 12 prototype scans: kernels vs plain at {b} x 1M bitwise "
           f"equal (scan_d1 / split / proto_scan at W=256 and 512, split also "
-          f"at B=1; mxu_only W=128; scan3 W=256), and at kernel_r3's "
+          f"at B=1; scan3 W=256), mxu_only (wgmma) within qw 2^-22 S (max "
+          f"|kernel - plain| {errs['mxu_only']:.3g}), and at kernel_r3's "
           f"{R3_N} x {b} (mxu_only; scan_d1 / split W=512 at B={b} and B=1, "
           f"plain in 1M-column chunks), in {t_cmp10:.1f} s (with timing "
-          f"{t_cmp:.1f} s); "
+          f"{t_cmp:.1f} s); mxu_only at {b} x 1M: {km['ms']:.4f} ms (device "
+          f"{km['device_ms']:.4f}), bound {km['bound_ms']:.4f}, ALU floor "
+          f"{km['alu_floor_ms']:.4f}, {km['library']} {km['library_ms']:.4f}"
+          f" ms; " + kernel_r3.format_study(study) + "; "
           f"kernel_r3 at N={r3['n']} (Np={r3['np']}) B={b} W=512: "
           + ", ".join(f"{nm} {r3[nm]:.3f} ms ({b / r3[nm] * 1e3:.0f} q/s, "
                       f"{gbps[nm]:.1f} GB/s)" for nm in gbps)

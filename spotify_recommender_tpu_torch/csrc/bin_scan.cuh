@@ -90,8 +90,18 @@
 //
 // The prototypes' single walk (scan_d1, proto_scan) is the scan kernel over
 // one slice writing straight to the outputs, without the merge.
-// Tensor cores (wgmma) are later work: their fp32 accumulation is not
-// documented to round each addition to nearest, which BF16X2_EPS assumes.
+// Tensor cores (wgmma) are later work: BF16X2_EPS assumes that each fp32
+// addition rounds to nearest, and wgmma's accumulation does not.  Measured
+// on an H100 with kernel 10 (csrc/mxu_wgmma.cu; PERF.md section 6):
+// it truncates (1 + 0.75 ulp sums to 1, -(1 + 0.75 ulp) to -1), and one
+// model gives every measured dot bitwise (experiments/kernel_r3.
+// step_model): per k step of 16, take the largest exponent E of the
+// accumulator and the products (a product's: ea + eb), truncate each term
+// to a multiple of 2^(E - 25), sum, truncate once to fp32.  That model
+// errs by less than 0.65 of the 48-term round-to-nearest budget (48 *
+// 2^-24 * S); the measured worst was 0.49 (a directed dot), 0.21 over 1.0e8
+// random ones.  So a tensor-core scan may keep BF16X2_EPS, but the model
+// is measured, not documented: proving it comes first (ROADMAP 2b item 2).
 
 #pragma once
 

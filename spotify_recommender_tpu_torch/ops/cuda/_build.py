@@ -7,8 +7,8 @@ libraries with a plain C interface, each built at its own first use:
                  the kernels of the user paths (ops/cuda/split: the query
                  prologue and the split; scan_v3, scan_v2, fused),
                  libsrt_serving.so
-    EXPERIMENTS  proto_scans.cu, ablation_r2.cu: the probes of
-                 `experiments/` (ops/cuda/proto_scans, ablation),
+    EXPERIMENTS  mxu_wgmma.cu, proto_scans.cu, ablation_r2.cu: the probes
+                 of `experiments/` (ops/cuda/proto_scans, ablation),
                  libsrt_experiments.so
 
 Both also compile `errors.cu` (the error message of a CUDA code), and both
@@ -97,7 +97,7 @@ SERVING = Library("serving", (
 })
 
 EXPERIMENTS = Library("experiments", (
-    "errors.cu", "proto_scans.cu", "ablation_r2.cu",
+    "errors.cu", "mxu_wgmma.cu", "proto_scans.cu", "ablation_r2.cu",
 ), {
     # q, b, qw, ft, ft_stride, np, slice, part, out, stream
     "srt_mxu_only": (_P, _I64, _I32, _P, _I64, _I64, _I64, _P, _P, _P),

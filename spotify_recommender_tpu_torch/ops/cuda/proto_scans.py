@@ -1,8 +1,10 @@
 """TPU kernels 9-12: the bin-scan prototypes of the JAX repo's
-`experiments/`, as wrappers over `csrc/proto_scans.cu`.
+`experiments/`, as wrappers over `csrc/proto_scans.cu` and, for
+`mxu_only`, `csrc/mxu_wgmma.cu`.
 
     mxu_only(q, ft)                       (B, 128) f32: per query and lane
                                           (column mod 128) the max dot
+    mxu_only_tolerance(q, ft)             (B, 128) f32: its card check's bound
     scan_d1(q, ft, w=, invert=)           3 x (B, w): per bin the best value,
                                           its column (int32), the 2nd best
     scan_d1_split(q, ft, w=)              the same over a catalog split
@@ -28,10 +30,14 @@ lowest column wins ties) and its (D+1)-th best value.
 On CUDA tensors each wrapper launches its kernel (w a multiple of 128 up to
 KERNEL_MAX_BINS) and counts the launch in `<wrapper>.launches`; on CPU
 tensors it runs the plain version, which sums the same exact bf16 products
-in the kernel's order (ascending rows, one fp32 rounding each), so on the
-card the two agree bitwise.  `scan_d1_split_plain` repeats the kernel's
-per-slice walk and merge (ops/cuda/scan_v3.merge_bins at depth 1), which
-equal the single walk bitwise.  The kernels live in the experiment library
+in the bin scans' order (ascending rows, one fp32 rounding each), so on the
+card those agree bitwise.  `mxu_only`'s kernel sums on the tensor cores
+(`wgmma`, csrc/mxu_wgmma.cu; qw <= MXU_MAX_QW), in their own order, so it
+is held to its plain version within `mxu_only_tolerance`, a bound derived
+for any fp32 accumulation that rounds each addition once.
+`scan_d1_split_plain` repeats the kernel's per-slice walk and merge
+(ops/cuda/scan_v3.merge_bins at depth 1), which equal the single walk
+bitwise.  The kernels live in the experiment library
 (ops/cuda/_build.EXPERIMENTS), built at the first launch of one of them.
 """
 
@@ -55,22 +61,26 @@ from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
 )
 
 LANES = 128          # mxu_only's lanes
-MXU_QUERIES = 16     # queries per mxu_only block (csrc/proto_scans.cu)
+MXU_QUERIES = 128    # queries per mxu_only block (csrc/mxu_wgmma.cu)
+MXU_MAX_QW = 64      # the widest query its kernel takes: 4 wgmma k steps
 SCAN3_BINS = 256     # k_scan3's fixed W
 DEPTH3 = 3           # scan3 / proto_scan bin depth
 EPS = 1e-8           # the prototypes' guard
 LIB = _build.EXPERIMENTS
 # catalog-split grids: blocks per SM they aim for
-MXU_BLOCKS_PER_SM = 8
+MXU_BLOCKS_PER_SM = 2     # two waves of its one resident block per SM
+MXU_TOL_CHUNK = 1 << 27   # elements of one fp64 chunk of mxu_only_tolerance
 D1_BLOCKS_PER_SM = 2
 
 Outs = Tuple[torch.Tensor, ...]
 
 
 def plain_dots(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
-    """(B, Np) fp32 dots of q (B, qw) with ft rows [0, qw), summed as the
-    kernels sum them: each bf16 product is exact in fp32, so every step
-    rounds once, as the kernels' FMA does."""
+    """(B, Np) fp32 dots of q (B, qw) with ft rows [0, qw), summed in the
+    bin scans' order (kernels 9, 11 and 12: ascending rows): each bf16
+    product is exact in fp32, so every step rounds once, as those kernels'
+    FMA does.  `mxu_only`'s kernel sums on the tensor cores in their own
+    order and is held to this sum within `mxu_only_tolerance`."""
     qw = q.shape[1]
     qf, ff = q.float(), ft[:qw].float()
     dots = torch.zeros((q.shape[0], ft.shape[1]), dtype=torch.float32,
@@ -132,18 +142,51 @@ def mxu_only_plain(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
     return dots.view(q.shape[0], -1, LANES).amax(dim=1)
 
 
+def mxu_only_tolerance(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
+    """(B, 128) f32: how far `mxu_only`'s kernel may lie from its plain
+    version, qw * 2^-22 * S, S per (query, lane) the max over the lane's
+    columns c of sum_r |q[r] * ft[r, c]|.
+
+    The qw products are exact in fp32.  Any fp32 accumulation of them that
+    rounds each addition once, to nearest or toward zero, lies within
+    qw * 2^-23 * S of the exact sum (each rounding moves the partial sum by
+    at most 2^-23 of it, and every partial sum is at most S); the plain
+    version, sequential round-to-nearest, within qw * 2^-24 * S; a max over
+    columns moves no more than its worst term.  So the two lie within
+    qw * (2^-23 + 2^-24) * S, under qw * 2^-22 * S.  The tensor cores' sum
+    is of another kind: on an H100 it is, bitwise on every dot measured, a
+    model that per k step of 16 truncates each term 2 bits below the last
+    bit of the step's largest exponent and the step's sum once (PERF.md
+    section 6; experiments/kernel_r3.step_model), which errs by
+    less than 5.25 * 2^-23 * S per step, inside the same bound for
+    qw >= 16.  S is summed in fp64
+    (exact products, no rounding that matters) over column chunks of at
+    most MXU_TOL_CHUNK / B columns."""
+    qw, b, np_ = q.shape[1], q.shape[0], ft.shape[1]
+    qa = q.double().abs()
+    chunk = max(LANES, MXU_TOL_CHUNK // max(b, 1) // LANES * LANES)
+    s = torch.zeros((b, LANES), dtype=torch.float64, device=q.device)
+    for c0 in range(0, np_, chunk):
+        fa = ft[:qw, c0:c0 + chunk].double().abs()
+        s = torch.maximum(s, (qa @ fa).view(b, -1, LANES).amax(dim=1))
+    return (qw * 2.0**-22 * s).float()
+
+
 def mxu_only(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
     """TPU kernel 10 (`experiments/kernel_r3.py:53`)."""
     qw = _check(q, ft, LANES, "mxu_only")
     if _on_cpu(q, ft):
         return mxu_only_plain(q, ft)
     _check_kernel(q, ft, LANES, "mxu_only")
+    if qw > MXU_MAX_QW:
+        raise ValueError(f"mxu_only: the kernel takes qw <= {MXU_MAX_QW}, "
+                         f"got {qw}")
     b, np_ = q.shape[0], ft.shape[1]
     slice_ = split_slice(b, np_, LANES, MXU_QUERIES, device_sms(q.device),
                          MXU_BLOCKS_PER_SM)
     slices = max(1, -(-np_ // slice_))
-    part = _empty((slices, b, LANES), torch.float32, q)
     out = _empty((b, LANES), torch.float32, q)
+    part = _empty((slices, b, LANES), torch.float32, q) if slices > 1 else out
     with torch.cuda.device(q.device):
         err = _build.library(LIB).srt_mxu_only(
             q.data_ptr(), b, qw, ft.data_ptr(), ft.stride(0), np_, slice_,
