@@ -42,10 +42,14 @@ its plain torch version on the card, runs the reference-style CLI on a
   probe),
   `experiments.kernel_ablation_r2e.main` and
   `experiments.certified_proto.main` at 1M x 1024;
-- phase 13: TPU kernels 5-8 (kernel 3's round-2 ablation bodies): every
-  case of the four launchers against its plain version, outputs and
-  per-tile digest (NaN-aware), on its main's inputs (1024 queries, 1M
-  rows, the case's tc), then the four mains
+- phase 13: TPU kernels 5-8 (kernel 3's round-2 ablation bodies, the 14
+  instances of `csrc/ablation_r2.cu`; phase 2 fails if one spills, if one
+  lacks the LDGSTS of its cp.async staging or a bf16 one the FFMA of its
+  contraction): every case of the four launchers against its plain
+  version, outputs and per-tile digest (NaN-aware), on its main's inputs
+  (1024 queries, 1M rows, the case's tc); each body's entry with its
+  `issue_floor_ms`, its dot's issue counted from its instance's SASS
+  (`sass_dot_issue`); then the four mains
   `experiments.kernel_ablation_r2{,b,c,d}.main` at 1M x 1024;
 - phase 14: the approx tier (`Retriever` with `dtype="bfloat16"`: kernels
   2 and 1, no rerank) at the phase-6 cell and B = 1: recall@10 against the
@@ -554,18 +558,60 @@ def mxu_extras(q: torch.Tensor, ft: torch.Tensor) -> dict:
                 library=lib_call)
 
 
-def sass_counts(lib_path: Path, name: str) -> dict:
-    """{function: (HGMMA, UTMALDG) instruction counts} of the functions of
-    a built library whose name holds `name`, from `cuobjdump -sass`."""
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+SASS_BRA = re.compile(r"BRA\s+(?:`\()?0x([0-9a-f]+)")
+
+
+def sass_functions(lib_path: Path, name: str) -> dict:
+    """{function: [(address, opcode, text)]} of the functions
+    of a built library whose name holds `name`, from `cuobjdump -sass`."""
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, check=True).stdout
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         fn = part.split("\n", 1)[0].strip()
-        if name in fn:
-            out[fn] = (part.count("HGMMA"), part.count("UTMALDG"))
+        if name not in fn:
+            continue
+        ins = []
+        for m in SASS_LINE.finditer(part):
+            toks = m.group(2).split()
+            ins.append((int(m.group(1), 16),
+                        toks[1] if toks[0].startswith("@") else toks[0],
+                        m.group(2)))
+        out[fn] = ins
     return out
+
+
+def sass_counts(lib_path: Path, name: str,
+                ops=("HGMMA", "UTMALDG")) -> dict:
+    """{function: (count of each op)} of the functions of a built library
+    whose name holds `name`: the instructions whose opcode starts with the
+    op (LDGSTS counts LDGSTS.E.BYPASS.128)."""
+    return {fn: tuple(sum(1 for _, op, _ in ins if op.startswith(o))
+                      for o in ops)
+            for fn, ins in sass_functions(lib_path, name).items()}
+
+
+def sass_dot_issue(ins: list, product: str) -> Tuple[float, int]:
+    """Lane instructions per product of an ablation kernel instance's dot
+    loop (csrc/ablation_r2.cu), from its SASS: of the innermost loops (a
+    backward branch with no other inside it), the one with the most
+    `product` instructions (FFMA for bf16, one a product; FADD for fp32),
+    its instructions over those products.  Returns (per product, the
+    loop's instructions)."""
+    idx = {a: i for i, (a, *_) in enumerate(ins)}
+    loops = []
+    for i, (_, op, text) in enumerate(ins):
+        m = SASS_BRA.search(text) if op.startswith("BRA") else None
+        if m and idx.get(int(m.group(1), 16), i + 1) <= i:
+            loops.append((idx[int(m.group(1), 16)], i))
+    inner = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    count = (lambda lp: sum(ins[k][1].startswith(product)
+                            for k in range(lp[0], lp[1] + 1)))
+    row = max(inner, key=count)
+    return (row[1] - row[0] + 1) / count(row), row[1] - row[0] + 1
 
 
 def finite_diff(a, b) -> float:
@@ -769,6 +815,12 @@ def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
     check(n13 == 35 and len(first) == 17, f"{n13} cases, {len(first)} bodies")
     t_cmp13 = time.perf_counter() - t13
     lib13 = {}
+    # the issue floor of each body's dot at its case's shape: F products a
+    # score at the instance's dot loop's instructions a product (SASS,
+    # sass_dot_issue), at the card's max SM clock
+    sass13 = sass_functions(_build.build(_build.EXPERIMENTS), "ablation_kernel")
+    mhz = float(nvidia_smi("clocks.max.sm").splitlines()[0].split()[0])
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     for bname, (key, name, call, err, body) in first.items():
         q, qn, ft, cn = call.args[:4]
         inputs = [x for x in call.args if isinstance(x, torch.Tensor)]
@@ -787,6 +839,19 @@ def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
             if (q.data_ptr(), ft.data_ptr()) not in lib13:
                 lib13[q.data_ptr(), ft.data_ptr()] = library_mm(q, ft)
             lib, how = lib13[q.data_ptr(), ft.data_ptr()]
+            bf16 = q.dtype == torch.bfloat16
+            til = body.tiling(q.shape[1], q.dtype)
+            (ins,) = [v for fn, v in sass13.items() if re.search(
+                f"ablation_kernelI{'13__nv_bfloat16' if bf16 else 'f'}"
+                f"Li{body.epi}ELi{body.reduce}E", fn)]
+            per_product, loop = sass_dot_issue(ins, "FFMA" if bf16 else "FADD")
+            per_score = q.shape[1] * per_product
+            floor13 = dict(
+                issue_floor_ms=q.shape[0] * ft.shape[1] * per_score
+                / (sms * 128 * mhz * 1e6) * 1e3,
+                issue_per_score=per_score, dot_loop_instructions=loop,
+                tiling=til,
+                blocks_per_sm=body.blocks_per_sm(q.shape[1], q.dtype))
         kernels[bname] = dict(
             source=f"{CSRC}/{'fused_topk' if body is None else 'ablation_r2'}.cu",
             replaces=f"{ablation.R2}:136" if body is None else body.replaces,
@@ -796,6 +861,7 @@ def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
                     "bf16" if q.dtype == torch.bfloat16 else "fp32",
                     *inputs, *out),
             library_ms=lib, library=how,
+            **({} if body is None else floor13),
         )
     t_time13 = time.perf_counter() - t13 - t_cmp13
     # the four paths, each with its kernels' counts set to 0 just before
@@ -822,8 +888,10 @@ def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
           f"{t_cmp13:.1f} s; kernels-line timing {t_time13:.1f} s; "
           + "; ".join(f"{nm} {kernels[nm]['ms']:.3f} ms (plain "
                       f"{kernels[nm]['plain_ms']:.1f}, bound "
-                      f"{kernels[nm]['bound_ms']:.3f}, library "
-                      f"{kernels[nm]['library_ms']:.3f})" for nm in first)
+                      f"{kernels[nm]['bound_ms']:.3f}, issue floor "
+                      f"{kernels[nm].get('issue_floor_ms', float('nan')):.3f}, "
+                      f"library {kernels[nm]['library_ms']:.3f})"
+                      for nm in first)
           + "; mains: " + "; ".join(
               f"{key} " + ", ".join(f"{c} {t:.3f}" for c, t in r.items())
               for key, r in mains13.items())
@@ -2443,7 +2511,7 @@ def main() -> None:
         gxx_job = pool.submit(build_parser)
         built = {name: job.result() for name, job in jobs.items()}
         gxx_s = gxx_job.result()
-    line, fused_regs = [], []
+    line, fused_regs, abl_regs = [], [], []
     for lib in _build.LIBRARIES:
         path, secs = built[lib.name]
         reports = ptxas_reports((path.parent / _build.LOG_NAME).read_text())
@@ -2455,6 +2523,8 @@ def main() -> None:
                        else "no spill stores"))
         fused_regs += [(nm, r, sp) for nm, r, sp in reports
                        if nm.startswith("fused_partial_kernel")]
+        abl_regs += [(nm, r, sp) for nm, r, sp in reports
+                     if nm.startswith("ablation_kernel")]
     check(len(fused_regs) == 9 and not any(sp for *_, sp in fused_regs),
           f"kernel 3's instances: {fused_regs} (9 expected, none spilling)")
     mxu_sass = sass_counts(built[_build.EXPERIMENTS.name][0], "mxu_wgmma_kernel")
@@ -2462,6 +2532,18 @@ def main() -> None:
                                      for h, t in mxu_sass.values()),
           f"kernel 10's instances: {mxu_sass} (4 expected, each with HGMMA "
           f"and UTMALDG)")
+    # kernels 5-8: 14 instances, none spilling; each stages the catalog
+    # (cp.async: LDGSTS, or TMA: UTMALDG), the bf16 ones contract with FFMA
+    check(len(abl_regs) == 14 and not any(sp for *_, sp in abl_regs),
+          f"kernels 5-8's instances: {abl_regs} (14 expected, none spilling)")
+    abl_sass = sass_counts(built[_build.EXPERIMENTS.name][0],
+                           "ablation_kernel", ("FFMA", "LDGSTS", "UTMALDG"))
+    check(len(abl_sass) == 14
+          and all(ld + tma > 0 for _, ld, tma in abl_sass.values())
+          and all(ffma > 0 for fn, (ffma, _, _) in abl_sass.items()
+                  if "bfloat16" in fn),
+          f"kernels 5-8's SASS (FFMA, LDGSTS, UTMALDG): {abl_sass} (LDGSTS or "
+          f"UTMALDG in all 14, FFMA in the bf16 ones)")
     print("phase 2 build (both libraries and the native csv parser at "
           "once): " + "; ".join(line) + f"; {native_ingest.LIB_NAME} (g++) in "
           f"{gxx_s:.1f} s"
@@ -2469,7 +2551,12 @@ def main() -> None:
           + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill"
           + "; kernel 10 (mxu_wgmma_kernel<k steps>) SASS HGMMA / UTMALDG: "
           + ", ".join(f"{_short_name(nm)} {h} / {t}"
-                      for nm, (h, t) in mxu_sass.items()))
+                      for nm, (h, t) in mxu_sass.items())
+          + "; kernels 5-8 (ablation_kernel<epi,red[,bf16]>) registers: "
+          + ", ".join(f"{nm} {r}" for nm, r, _ in abl_regs) + ", no spill"
+          + "; their SASS FFMA / LDGSTS: "
+          + ", ".join(f"{_short_name(nm)} {ff} / {ld}"
+                      for nm, (ff, ld, _) in abl_sass.items()))
 
     # ---- 3. split: kernel vs plain, bitwise
     rng = np.random.default_rng(0)

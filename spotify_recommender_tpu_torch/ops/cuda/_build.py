@@ -114,6 +114,9 @@ EXPERIMENTS = Library("experiments", (
     # width, eps, out_s, out_i, dmax, dg, stream
     "srt_ablation": (_P, _P, _P, _I64, _P, _P, _I64, _I64, _I32, _I64, _I32,
                      _I32, _I32, _I32, _I32, _F32, _P, _P, _P, _P, _P),
+    # f, bf16, epi, red, out (int); out (5 ints)
+    "srt_ablation_blocks_per_sm": (_I32, _I32, _I32, _I32, _P),
+    "srt_ablation_tiling": (_I32, _I32, _I32, _I32, _P),
 })
 
 LIBRARIES = (SERVING, EXPERIMENTS)

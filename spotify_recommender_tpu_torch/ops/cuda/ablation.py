@@ -16,15 +16,19 @@ reduction over one catalog tile of `tc` columns:
     excl   (B,) or (B, 1) integer column to mask, -1 none (MASK bodies)
     valid  columns >= valid are masked (MASK bodies); an int or a tensor
 
-    dot       sum over ascending r of q[r] * ft[r, col], one fp32 rounding
-              per multiply and per add (bf16 products are exact)
+    dot       sum over ascending r of q[r] * ft[r, col]: fp32 storage
+              rounds each multiply and each add; bf16 storage rounds the
+              first product, then adds each next one with a fused
+              multiply-add, one rounding per step (the card's __fmaf_rn;
+              `fma_step`)
     epilogue  DIV dot / (qn*cn); MUL dot * (qn*cn); CLIP clamp to [-1, 1]
               (NaN passes, as jnp.clip); GUARD qn*cn > 1e-8 ? s : 0; MASK
               -inf at columns >= valid and at excl
     reduce    FIRST the raw dots of the tile's first `width` columns; MAX
               the tile's max (NaN wins); TOP2 the per-lane (col mod 128)
-              vertical top-2 over the tile's groups, strict `>`, then
-              max(v1) and max over lanes of g1 + g2
+              vertical top-2 over the tile's groups, v1 from group 0, then
+              strict `>`, then max(v1) (NaN wins) and max over lanes of
+              g1 + g2
 
 It returns what the TPU returns: the LAST tile's result (the TPU bodies
 overwrite their scratch at every grid step), as (B, width) f32 and, with
@@ -75,29 +79,59 @@ def as_int(x) -> int:
     return int(np.asarray(x).reshape(-1)[0])
 
 
+def fma_step(acc: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
+    """fp32 acc + a * b rounded once, as the card's __fmaf_rn, for bf16 a
+    and b (broadcasting): the product of two bf16 values (8 significant
+    bits each) is exact in fp64, and the fp64 sum of two operands of at
+    most 24 significant bits, rounded again to fp32, is the sum rounded
+    once (53 >= 2 * 24 + 2).  One fp64 temporary of acc's shape."""
+    return acc.double().addcmul_(a.double(), b.double()).float()
+
+
 def plain_dots(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
     """(B, cols) fp32 dots of q (B, F) with ft rows [0, F) in the kernel's
-    chain: the first product, then one add per row, each rounded."""
+    chain: the rounded first product, then per row one rounded multiply
+    and one rounded add (fp32), or one `fma_step` (bf16, over at most
+    PLAIN_CHUNK_ELEMS scores at a time: a 512 MiB fp64 temporary)."""
     qf, ff = q.float(), ft.float()
     dots = qf[:, 0:1] * ff[0:1]
-    for r in range(1, q.shape[1]):
-        dots = dots + qf[:, r:r + 1] * ff[r:r + 1]
+    if q.dtype != torch.bfloat16:
+        for r in range(1, q.shape[1]):
+            dots = dots + qf[:, r:r + 1] * ff[r:r + 1]
+        return dots
+    step = max(1, PLAIN_CHUNK_ELEMS // max(1, q.shape[0]))
+    for c0 in range(0, dots.shape[1], step):
+        d = dots[:, c0:c0 + step]
+        for r in range(1, q.shape[1]):
+            d = fma_step(d, q[:, r:r + 1], ft[r:r + 1, c0:c0 + step])
+        dots[:, c0:c0 + step] = d
     return dots
 
 
 def top2_lanes(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per tile the max and max over lanes of g1 + g2 of the vertical
     top-2: s (B, tiles, groups, 128) -> two (B, tiles).  The sequential
-    strict-`>` walk keeps (v1, g1) the first best and (v2, g2) the next by
-    (value desc, group asc), with g2 = 0 while v2 is -inf."""
+    walk (v1 from group 0, then strict `>`) keeps (v1, g1) the first best
+    and (v2, g2) the next by (value desc, group asc), with g2 = 0 while v2
+    is -inf.  A NaN never beats, so it counts as -inf, except in group 0,
+    where it starts as v1 and stays; v2 is then the best of the rest."""
     groups = s.shape[2]
+    neg = float("-inf")
     gidx = torch.arange(groups, device=s.device)[None, None, :, None]
+    nan0 = torch.isnan(s[:, :, :1])
+    s = s.masked_fill(torch.isnan(s), neg)
     v1 = s.amax(dim=2, keepdim=True)
     g1 = torch.where(s == v1, gidx, groups).amin(dim=2, keepdim=True)
-    rest = s.masked_fill(gidx == g1, float("-inf"))
+    rest = s.masked_fill(gidx == g1, neg)
     v2 = rest.amax(dim=2, keepdim=True)
     g2 = torch.where(rest == v2, gidx, groups).amin(dim=2, keepdim=True)
-    g2 = torch.where(v2 == float("-inf"), 0, g2)
+    g2 = torch.where(v2 == neg, 0, g2)
+    # a NaN group 0: g1 = 0, and (v2, g2) the best of groups >= 1, which the
+    # walk without it found as (v1, g1) (group 0 is -inf there)
+    g2 = torch.where(nan0, torch.where(v1 == neg, 0, g1), g2)
+    g1 = torch.where(nan0, 0, g1)
+    v1 = v1.masked_fill(nan0, float("nan"))
     return v1.amax(dim=3)[:, :, 0], (g1 + g2).amax(dim=3)[:, :, 0].int()
 
 
@@ -188,6 +222,30 @@ class Body:
         out, dig = self._launch(q, qn, ft, cn, excl, valid, tc, width, index)
         return (*out, dig) if digest else out
 
+    def blocks_per_sm(self, f: int, dtype: torch.dtype) -> int:
+        """Blocks of this body's kernel instance for (F, storage dtype) that
+        one SM of the current CUDA device holds at once."""
+        out = ctypes.c_int(0)
+        err = _build.library(_build.EXPERIMENTS).srt_ablation_blocks_per_sm(
+            f, int(dtype == torch.bfloat16), self.epi, self.reduce,
+            ctypes.addressof(out))
+        _build.check(err, f"{self.name} occupancy (F={f}, {dtype})",
+                     _build.EXPERIMENTS)
+        return out.value
+
+    def tiling(self, f: int, dtype: torch.dtype) -> dict:
+        """The card kernel's tiling for (F, storage dtype), from the built
+        library: groups per step `u`, queries per block `tq`, `min_blocks`
+        an SM must hold, `row_unroll` rows a dot step, `stage_rows`."""
+        out = (ctypes.c_int * 5)()
+        err = _build.library(_build.EXPERIMENTS).srt_ablation_tiling(
+            f, int(dtype == torch.bfloat16), self.epi, self.reduce,
+            ctypes.addressof(out))
+        _build.check(err, f"{self.name} tiling (F={f}, {dtype})",
+                     _build.EXPERIMENTS)
+        return dict(zip(("u", "tq", "min_blocks", "row_unroll", "stage_rows"),
+                        out))
+
     def _check(self, q, qn, ft, cn, excl, valid, tc: int, width: int):
         if (q.dtype not in (torch.float32, torch.bfloat16)
                 or ft.dtype != q.dtype or qn.dtype != torch.float32
@@ -226,6 +284,11 @@ class Body:
             raise ValueError(f"{self.name}: the kernel takes contiguous q and "
                              f"norms, ft with unit column stride, F <= "
                              f"{KERNEL_MAX_F}")
+        if ft.data_ptr() % 16 or ft.stride(0) * ft.element_size() % 16:
+            # the kernel stages the catalog with 16-byte cp.async copies: a
+            # view off that alignment (a column offset, an odd row stride)
+            # is read through an aligned copy of its f rows
+            ft = ft[:f].clone(memory_format=torch.contiguous_format)
         ex = None
         if excl is not None:
             ex = torch.as_tensor(excl, device=dev).reshape(-1).to(

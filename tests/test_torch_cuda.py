@@ -664,6 +664,177 @@ def test_ablation_full_r1_equals_plain(cuda):
     assert torch.equal(s, ps) and torch.equal(i, pi) and i.dtype == torch.int32
 
 
+# the 14 kernel instances of csrc/ablation_r2.cu, each through the first
+# body that runs it: (epilogue, reduction, storage) -> body
+ABLATION_INSTANCES = {}
+for _c in ABLATION_CASES:
+    ABLATION_INSTANCES.setdefault((_c[2].epi, _c[2].reduce, _c[3]), _c[2])
+_INSTANCE_IDS = [f"{b.name}-{'bf16' if dt == torch.bfloat16 else 'f32'}"
+                 for (_, _, dt), b in ABLATION_INSTANCES.items()]
+_INSTANCES = [(b, dt) for (_, _, dt), b in ABLATION_INSTANCES.items()]
+_TOP2 = [(b, dt) for b, dt in _INSTANCES if b.reduce == ablation.TOP2]
+
+
+def _edge_args(cuda, b, f, np_, dtype, seed, nan_at=()):
+    """f rows of scaled normal values whose dots straddle +-1, zero-norm
+    columns, masked columns past valid = np - 50, exclusions, and NaN at
+    the (row, column) pairs `nan_at` (the norms taken before, so finite)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, f)).astype(np.float32)
+    ft = rng.standard_normal((f, np_)).astype(np.float32)
+    q *= rng.uniform(0.9, 1.4, (b, 1)) / np.linalg.norm(q, axis=1,
+                                                         keepdims=True)
+    ft *= rng.uniform(0.9, 1.4, (1, np_)) / np.linalg.norm(ft, axis=0,
+                                                           keepdims=True)
+    ft[:, rng.integers(0, np_, 8)] = 0.0
+    qn = np.linalg.norm(q, axis=1, keepdims=True).astype(np.float32)
+    cn = np.linalg.norm(ft, axis=0, keepdims=True).astype(np.float32)
+    for r, c in nan_at:
+        ft[r, c] = np.nan
+    excl = rng.integers(-1, np_, (b, 1)).astype(np.int32)
+    t = [torch.from_numpy(a).to(cuda) for a in (q, qn, ft, cn, excl)]
+    return t[0].to(dtype), t[1], t[2].to(dtype), t[3], t[4], np_ - 50
+
+
+def _held_to_plain(body, args, tc, width=16, index=True):
+    """One launch, bitwise (NaN-aware) its plain version, outputs and
+    per-tile digest; returns the kernel's outputs and digest."""
+    before = body.launches
+    *out, dig = body(*args, tc=tc, width=width, index=index, digest=True)
+    torch.cuda.synchronize()
+    assert body.launches == before + 1
+    *pout, pdig = body.plain(*args, tc=tc, width=width, index=index,
+                             digest=True)
+    for o, p in zip([*out, *dig], [*pout, *pdig]):
+        assert ablation.nan_equal(o, p)
+    return out, dig
+
+
+def test_ablation_instances_are_the_libraries_fourteen(cuda):
+    """Every instance is reached, scores at least 2 groups a step, and an SM
+    holds at least 2 of its blocks at the widest F (64) and at the mains'
+    widths."""
+    assert len(ABLATION_INSTANCES) == 14
+    for body, dt in _INSTANCES:
+        assert body.tiling(12, dt)["u"] >= 2, (body.name, dt)
+        for f in (12, 16, 24, 32, 64):
+            assert body.blocks_per_sm(f, dt) >= 2, (body.name, dt, f)
+
+
+@pytest.mark.parametrize("off,pad", [(1, 16), (8, 9), (1, 9)],
+                         ids=["base", "stride", "both"])
+@pytest.mark.parametrize("body,dtype", _INSTANCES, ids=_INSTANCE_IDS)
+def test_ablation_unaligned_catalog_bitwise_equal_plain(cuda, body, dtype,
+                                                        off, pad):
+    """A catalog view whose base (off 1) or row stride (pad 9), or both, is
+    not a multiple of 16 bytes (the kernel's cp.async copies) is read
+    through an aligned copy: bitwise its plain version; the NaN around the
+    view shows a read outside it."""
+    tc, np_ = 384, 768
+    q, qn, ft, cn, excl, valid = _edge_args(cuda, 17, 5, np_, dtype, seed=off)
+    wide = torch.full((5, np_ + pad), float("nan"), dtype=dtype, device=cuda)
+    view = wide[:, off:off + np_]
+    view.copy_(ft)
+    _held_to_plain(body, (q, qn, view, cn, excl, valid), tc)
+
+
+@pytest.mark.parametrize("body,dtype", _INSTANCES, ids=_INSTANCE_IDS)
+def test_ablation_negative_norms_bitwise_equal_plain(cuda, body, dtype):
+    """Query norms of both signs in every query tile (and one 0) against a
+    first tile of negative catalog norms and a second of both signs: the
+    GUARD bodies zero every score whose qn * cn is not above eps, so a
+    query with qn > 0 against cn < 0 scores 0 even where the block's
+    smallest qn times cn passes; bitwise the plain version."""
+    tc, np_ = 512, 1024
+    q, qn, ft, cn, excl, valid = _edge_args(cuda, 37, 12, np_, dtype,
+                                            seed=5)
+    sign = torch.ones(37, 1, device=cuda)
+    sign[1::2] = -1.0
+    qn = qn * sign
+    qn[4] = 0.0
+    cn = cn.clone()
+    cn[:, :tc] = -cn[:, :tc]
+    cn[:, tc + 1::3] = -cn[:, tc + 1::3]
+    _held_to_plain(body, (q, qn, ft, cn, excl, valid), tc)
+
+
+@pytest.mark.parametrize("f", [1, 5, 64])
+@pytest.mark.parametrize("b", [1, 17])
+@pytest.mark.parametrize("tc", [128, 384, 640])
+@pytest.mark.parametrize("body,dtype", _INSTANCES, ids=_INSTANCE_IDS)
+def test_ablation_instance_shapes_bitwise_equal_plain(cuda, body, dtype, tc,
+                                                      b, f):
+    """tc = 128 (one group), 384 and 640 (3 and 5 groups: a last chunk of
+    1 group at U = 2 and U = 4), B = 1 and 17 (a partial query tile), F =
+    1, 5 and 64 (64 spans several stages of a chunk), two tiles."""
+    args = _edge_args(cuda, b, f, 2 * tc, dtype, seed=tc + 7 * b + f)
+    _held_to_plain(body, args, tc)
+
+
+@pytest.mark.parametrize("f", [12, 64])
+@pytest.mark.parametrize("body,dtype", _TOP2,
+                         ids=[f"{b.name}-{dt}" for b, dt in _TOP2])
+def test_ablation_top2_ties_across_chunks_and_stages(cuda, body, dtype, f):
+    """Equal columns in one lane at groups (1, 2), (3, 4), (5, 6), (7, 8)
+    and (11, 12), each pair in its own lane: across a chunk boundary at U
+    = 2 and at U = 4, and across the ring's wrap for 2 or 3 stages of
+    either U; a three-way tie (0, 9, 15) beside them.  Each tied column is
+    the query direction scaled to 0.99, the lane's best score."""
+    tc, b = 2048, 17
+    q, qn, ft, cn, excl, valid = _edge_args(cuda, b, f, 2 * tc,
+                                            torch.float32, seed=f)
+    target = q[0] / q[0].norm() * 0.99
+    for tile in (0, 1):
+        for lane, groups in enumerate([(1, 2), (3, 4), (5, 6), (7, 8),
+                                       (11, 12), (0, 9, 15)]):
+            for g in groups:
+                ft[:, tile * tc + 128 * g + 3 + 10 * lane] = target
+    cn = ft.norm(dim=0, keepdim=True)
+    excl = torch.full_like(excl, -1)
+    args = (q.to(dtype), qn, ft.to(dtype), cn, excl, 2 * tc)
+    out, dig = _held_to_plain(body, args, tc)
+    assert (dig[1] > 0).all()
+
+
+@pytest.mark.parametrize("body,dtype", _INSTANCES, ids=_INSTANCE_IDS)
+def test_ablation_nan_catalog_entry(cuda, body, dtype):
+    """A NaN catalog value in group 0 of lane 3 and in group 2 of lane 9
+    (tile 0), and in group 1 of lane 5 (tile 1): MAX lets NaN win, TOP2
+    keeps a group-0 NaN as v1 and never takes a later one."""
+    tc = 512
+    nan_at = [(0, 3), (1, 2 * 128 + 9), (0, tc + 128 + 5)]
+    args = _edge_args(cuda, 17, 12, 2 * tc, dtype, seed=11, nan_at=nan_at)
+    out, dig = _held_to_plain(body, args, tc)
+    if body.reduce == ablation.MAX and not body.epi & ablation.MASK:
+        assert torch.isnan(dig[0]).all()
+
+
+@pytest.mark.parametrize("body,dtype",
+                         [(b, dt) for b, dt in _INSTANCES
+                          if dt == torch.bfloat16],
+                         ids=[i for i, (b, dt) in zip(_INSTANCE_IDS, _INSTANCES)
+                              if dt == torch.bfloat16])
+def test_ablation_bf16_contracts_with_fma(cuda, body, dtype):
+    """q = (2^-75, 2^-75) against the column (2^-74, 2^-75), every other
+    column zero, unit norms: the fused chain gives 2^-149 + 2^-150 rounded
+    once = 2^-148 (ties to even); rounding the product 2^-150 first gives
+    2^-149.  The kernel equals the plain version and differs from the
+    old multiply-then-add chain."""
+    tc, b = 256, 3
+    q = torch.full((b, 2), 2.0**-75, dtype=dtype, device=cuda)
+    ft = torch.zeros((2, 2 * tc), dtype=dtype, device=cuda)
+    ft[0, tc + 7], ft[1, tc + 7] = 2.0**-74, 2.0**-75
+    qn = torch.ones((b, 1), device=cuda)
+    cn = torch.ones((1, 2 * tc), device=cuda)
+    excl = torch.full((b, 1), -1, dtype=torch.int32, device=cuda)
+    out, dig = _held_to_plain(body, (q, qn, ft, cn, excl, 2 * tc), tc)
+    qf, ff = q.float(), ft.float()
+    old = qf[:, :1] * ff[:1, tc + 7] + qf[:, 1:] * ff[1:, tc + 7]
+    assert (old == 2.0**-149).all()
+    assert (dig[0][:, 1] == 2.0**-148).all()
+    assert (dig[0][:, 0] == 0).all()
+
+
 # ---------------------------------------------------------------- MF path
 # (models/mf.py: no kernel of its own; torch.bmm, cuSOLVER's batched
 # Cholesky and the fp32 matrix product, held to the CPU port)
