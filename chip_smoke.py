@@ -20,16 +20,22 @@ its plain torch version on the card, runs the reference-style CLI on a
 - phase 7: the fused score + top-k kernel (kernel 3) at those shapes, both
   modes, k = 10 and 100 and B = 1, and on a tie-heavy catalog (each query's
   row copied to both sides of a catalog split or warp edge), bitwise equal
-  to its plain version (phase 2 fails if an instance of it spills);
-- phase 8: the Retriever's "pallas" backend and an exact `FusedRetriever`;
+  to its plain version (phase 2 fails if a warp-list instance spills); its
+  large-k path (k > 128) at k = 129, 1000 and 4096, B = 1024 and B = 1,
+  and on the tie-heavy catalog at k = 1000, bitwise, timed beside k = 128;
+- phase 8: the Retriever's "pallas" backend and an exact `FusedRetriever`,
+  at k = 10 and at k = 1000 (B = 1024 and B = 1) against the fixed-order
+  oracle;
 - phase 9: `StreamingRetriever` over a memory-mapped 4,000,000 x 12
   catalog directory, B = 256, window 1,048,576, and `retrieve --streaming`;
+  the tier at k = 1000 against the fixed-order oracle;
 - phase 10: the certified tier under `scan="v2"` (kernel 4, W = 512) at
   the phase-6 cell and B = 1, kernel 4 against its plain version (B =
   1024, 32, 1), and kernel 1 at W = 512 (`scan_bins=512`) against its
   plain version and the oracle;
 - phase 11: `FusedRetriever` over bf16 and bf16x2 storage (kernel 3's bf16
-  instances) and `PrefilterRetriever`, at the phase-6 cell;
+  instances, also bitwise at k = 1000) and `PrefilterRetriever`, at the
+  phase-6 cell, and `PrefilterRetriever(prefilter=4096)` at k = 1000;
 - phase 12: TPU kernels 9-12 (the prototype bin scans) against their plain
   versions at 1024 x 1M, and kernels 10-11 also at the 10M x 1024 layout
   (and B = 1) that `kernel_r3.main` runs them on: kernel 10 (`mxu_only`,
@@ -232,8 +238,11 @@ from spotify_recommender_tpu_torch.ops.cuda import (  # noqa: E402
     proto_scans,
 )
 from spotify_recommender_tpu_torch.ops.cuda.fused import (  # noqa: E402
+    SMALL_K_MAX,
+    _large_plan,
     _splits,
     fused_topk,
+    fused_topk_large,
     fused_topk_plain,
 )
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import (  # noqa: E402
@@ -293,6 +302,10 @@ TOL_EXACT, TOL_FAST = 1e-6, 1e-5
 TOL_BF16 = 2 * 2.0**-8 + 1e-6
 PALLAS = "spotify_recommender_tpu/ops/pallas/fused_topk.py"
 CSRC = "spotify_recommender_tpu_torch/csrc"
+# kernel 3's large-k path (k > SMALL_K_MAX): the k held to the plain
+# version in phase 7, and the k of the entry points driven through it
+LARGE_KS = (SMALL_K_MAX + 1, 1000, 4096)
+K_LARGE = 1000
 # an H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W): the
 # bound of a kernel is the larger of its operations over the peak for its
 # inputs' type and its bytes (each input read once, each output written
@@ -481,6 +494,24 @@ def dot_flops(q: torch.Tensor, ft: torch.Tensor, products: int) -> float:
     """Two operations per product, `products` per (query, column)."""
     return 2.0 * q.shape[0] * ft.shape[1] * products
 
+
+
+# kernel 3's ptxas counts for sm_90a, as measured on the H100 machine
+# (PERF.md, kernel 3): (registers, most spill-store bytes allowed)
+KERNEL3_REGS = {
+    "fused_partial_kernel<4,0>": (104, 0), "fused_partial_kernel<2,0>": (87, 0),
+    "fused_partial_kernel<1,0>": (80, 0), "fused_partial_kernel<4,1>": (104, 0),
+    "fused_partial_kernel<2,1>": (87, 0), "fused_partial_kernel<1,1>": (79, 0),
+    "fused_partial_kernel<4,0,bf16>": (104, 0),
+    "fused_partial_kernel<2,0,bf16>": (85, 0),
+    "fused_partial_kernel<1,0,bf16>": (80, 0),
+}
+KERNEL3_LARGE_REGS = {
+    "fused_large_partial_kernel<0>": (64, 0),
+    "fused_large_partial_kernel<1>": (80, 8),
+    "fused_large_partial_kernel<0,bf16>": (64, 0),
+    "fused_large_merge_kernel<>": (32, 0),
+}
 
 def ptxas_reports(log: str) -> list:
     """(`name<template args>`, registers, spill-store bytes) of each entry
@@ -2511,7 +2542,7 @@ def main() -> None:
         gxx_job = pool.submit(build_parser)
         built = {name: job.result() for name, job in jobs.items()}
         gxx_s = gxx_job.result()
-    line, fused_regs, abl_regs = [], [], []
+    line, fused_regs, abl_regs, large_regs = [], [], [], []
     for lib in _build.LIBRARIES:
         path, secs = built[lib.name]
         reports = ptxas_reports((path.parent / _build.LOG_NAME).read_text())
@@ -2523,10 +2554,20 @@ def main() -> None:
                        else "no spill stores"))
         fused_regs += [(nm, r, sp) for nm, r, sp in reports
                        if nm.startswith("fused_partial_kernel")]
+        large_regs += [(nm, r, sp) for nm, r, sp in reports
+                       if nm.startswith("fused_large")]
         abl_regs += [(nm, r, sp) for nm, r, sp in reports
                      if nm.startswith("ablation_kernel")]
-    check(len(fused_regs) == 9 and not any(sp for *_, sp in fused_regs),
-          f"kernel 3's instances: {fused_regs} (9 expected, none spilling)")
+    # kernel 3: each instance's registers within 2 of its measured count
+    # and its spill stores at most the measured bytes (none but the exact
+    # large-k instance's 8)
+    for regs, want in ((fused_regs, KERNEL3_REGS),
+                       (large_regs, KERNEL3_LARGE_REGS)):
+        check({nm for nm, *_ in regs} == set(want)
+              and all(abs(r - want[nm][0]) <= 2 and sp <= want[nm][1]
+                      for nm, r, sp in regs),
+              f"kernel 3's instances (registers, spill bytes): {regs}, "
+              f"expected {want}")
     mxu_sass = sass_counts(built[_build.EXPERIMENTS.name][0], "mxu_wgmma_kernel")
     check(len(mxu_sass) == 4 and all(h > 0 and t > 0
                                      for h, t in mxu_sass.values()),
@@ -2549,6 +2590,8 @@ def main() -> None:
           f"{gxx_s:.1f} s"
           + "; kernel 3 (fused_partial_kernel<KPL,EXACT>) registers: "
           + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill"
+          + "; its large-k path registers (spill-store bytes): "
+          + ", ".join(f"{nm} {r} ({sp})" for nm, r, sp in large_regs)
           + "; kernel 10 (mxu_wgmma_kernel<k steps>) SASS HGMMA / UTMALDG: "
           + ", ".join(f"{_short_name(nm)} {h} / {t}"
                       for nm, (h, t) in mxu_sass.items())
@@ -2785,17 +2828,24 @@ def main() -> None:
                 TOL_FAST),
     }
     line, fused_err, fused_times = [], 0.0, {}
+    large_err, large_out, large_ms = 0.0, {}, {}
     # the nearest PyTorch has to kernel 3: two calls, a product and a top-k,
     # on the prenormalized operands (TF32 off)
     lib_fp32 = sync_ms(lambda: torch.topk(torch.mm(qunit, modes[False][1]), k),
                        10)
+    lib_large = {nb: sync_ms(lambda: torch.topk(torch.mm(
+        qunit[:nb], modes[False][1]), K_LARGE), 5) for nb in (b, 1)}
     # a tie-heavy catalog: each query's own row copied to both sides of a
     # catalog split edge or of a warp's 32-column edge (columns e - 1 and
     # e), so its best scores tie across the edge
+    # and of the large-k path's split edges at K_LARGE
     split_cols = _splits(b, n, DEV)[1]
-    edges = list(range(split_cols, n, split_cols))
-    edges += sorted(rng0.choice(np.arange(32, n, 32), b - len(edges),
-                                replace=False).tolist())
+    large_cols = _large_plan(b, n, DEV, fq=12, k=K_LARGE, exact=True,
+                             bf16=False)[2]
+    edges = sorted({*range(split_cols, n, split_cols),
+                    *range(large_cols, n, large_cols)})
+    edges += sorted(rng0.choice(np.setdiff1d(np.arange(32, n, 32), edges),
+                                b - len(edges), replace=False).tolist())
     at = torch.tensor(edges, device=DEV)
     dup = f_dev.clone()
     dup[at - 1] = dup[at] = queries
@@ -2829,6 +2879,33 @@ def main() -> None:
         if exact:          # exact products need fp32, outside the tensor cores
             fused_bound = bound(dot_flops(qq, ft3, ft3.shape[0]), "fp32",
                                 *args[:5], kv, ki)
+        # the large-k path: bitwise at B = 1024 and B = 1 for each of
+        # LARGE_KS and on the tie-heavy catalog at K_LARGE, its launches
+        # counted; timed beside the warp lists' k = 128
+        a1 = (qq[:1], qn[:1], ft3, n_dev, excl[:1], n)
+        launched = fused_topk_large.launches
+        for kk in LARGE_KS:
+            for aa in (args, a1):
+                kv_l, ki_l, err = compare_fused(
+                    aa, kk, exact,
+                    f"fused exact={exact} k={kk} B={aa[0].shape[0]}")
+                large_err = max(large_err, err)
+                if kk == K_LARGE:
+                    large_out[exact, aa[0].shape[0]] = (kv_l, ki_l)
+        tv, _, err = compare_fused(ties[exact], K_LARGE, exact,
+                                   f"fused exact={exact} k={K_LARGE}, "
+                                   "tie-heavy")
+        large_err = max(large_err, err)
+        check(int((tv[:, 0] == tv[:, 1]).sum().item()) == tie_top[exact],
+              f"tie-heavy at k={K_LARGE}: the top ties differ from k={k}'s")
+        launched = fused_topk_large.launches - launched
+        check(launched == 2 * len(LARGE_KS) + 1,
+              f"the large-k path launched {launched} times in phase 7")
+        large_ms[exact] = {
+            (kk, nb): sync_ms(lambda: fused_topk(*(args if nb == b else a1),
+                                                 k=kk, exact=exact),
+                              10 if kk <= SMALL_K_MAX + 1 else 5)
+            for kk in (SMALL_K_MAX, *LARGE_KS) for nb in (b, 1)}
         line.append(
             f"exact={exact}: bitwise equal to plain at k={k}, k=100 and on "
             f"the tie-heavy catalog ({tie_top[exact]} queries tie at the top); "
@@ -2846,9 +2923,35 @@ def main() -> None:
           and torch.equal(ki == -1, kv == float("-inf")),
           "unfilled slots are not (-inf, -1)")
     fused_err = max(fused_err, err2)
+    # the large-k path's kernels-line entries: the exact instance at
+    # K_LARGE, B = 1024 and B = 1 (launches: phase 8's entry points)
+    ft_exact = modes[True][1]
+    for nb, name in ((b, f"fused_topk_k{K_LARGE}"),
+                     (1, f"fused_topk_k{K_LARGE}_b1")):
+        la = (queries[:nb], qn[:nb], ft_exact, n_dev, excl[:nb], n)
+        kernels[name] = dict(
+            source=f"{CSRC}/fused_topk.cu", replaces=f"{PALLAS}:52",
+            max_abs_err=large_err, ms=large_ms[True][K_LARGE, nb],
+            plain_ms=sync_ms(lambda: fused_topk_plain(
+                *la, k=K_LARGE, exact=True), 3),
+            **bound(dot_flops(la[0], ft_exact, ft_exact.shape[0]), "fp32",
+                    *la[:5], *large_out[True, nb]),
+            library_ms=lib_large[nb],
+        )
+    del large_out
     print(f"phase 7 fused kernel: N={n} B={b} k={k}; " + "; ".join(line)
           + f"; k=100 vs oracle {oerr100:.3g} ({ties100} near-tie diffs); 5 "
-          f"valid columns, k={k}: bitwise equal, unfilled slots (-inf, -1)")
+          f"valid columns, k={k}: bitwise equal, unfilled slots (-inf, -1); "
+          f"large-k path (k > {SMALL_K_MAX}): bitwise equal to plain at k="
+          f"{', '.join(map(str, LARGE_KS))}, B={b} and B=1, both modes, and "
+          f"on the tie-heavy catalog at k={K_LARGE}; ms "
+          + "; ".join(
+              f"exact={ex} B={nb}: " + ", ".join(
+                  f"k={kk} {large_ms[ex][kk, nb]:.4f}"
+                  for kk in (SMALL_K_MAX, *LARGE_KS))
+              for ex in (True, False) for nb in (b, 1))
+          + f"; torch.topk(torch.mm) at k={K_LARGE}: B={b} "
+          f"{lib_large[b]:.3f}, B=1 {lib_large[1]:.4f}")
 
     # ---- 8. the "pallas" backend and an exact FusedRetriever
     rp = Retriever(cat, RetrievalConfig(exact_scores=False), DEV)
@@ -2872,6 +2975,31 @@ def main() -> None:
             f"{what}: {launched} launch, vs oracle max score diff {oerr:.3g}, "
             f"{ties} near-tie positions differ; batch {t_b:.3f} ms median of "
             f"20 ({b / t_b * 1e3:.0f} q/s); B=1 {t_1:.3f} ms")
+    # the large-k path through the same entry points at k = K_LARGE, B =
+    # 1024 and B = 1, against the fixed-order oracle
+    rs_l, ri_l = similarity.exact_topk_chunked(
+        queries, f_dev, n_dev, exclude_rows=excl, k=K_LARGE, fixed_order=True)
+    entries = (("pallas backend", rp.retrieve, TOL_FAST),
+               ("exact FusedRetriever", fr, TOL_EXACT))
+    for nb, name in ((b, f"fused_topk_k{K_LARGE}"),
+                     (1, f"fused_topk_k{K_LARGE}_b1")):
+        fused_topk.launches = fused_topk_large.launches = 0
+        outs = [fn(queries[:nb], k=K_LARGE, exclude_rows=excl[:nb])
+                for _, fn, _ in entries]
+        torch.cuda.synchronize()
+        launches[name] = fused_topk_large.launches
+        check(launches[name] == len(entries) and fused_topk.launches == 0,
+              f"k={K_LARGE} B={nb}: large-k path {launches[name]} launches, "
+              f"warp lists {fused_topk.launches}")
+        for (what, fn, tol), (sl, il) in zip(entries, outs):
+            oerr, ties = compare_oracle(sl, il, rs_l[:nb], ri_l[:nb], tol,
+                                        f"{what} k={K_LARGE} B={nb}")
+            t_l = wall_ms(lambda: fn(queries[:nb], k=K_LARGE,
+                                     exclude_rows=excl[:nb]), 10)
+            line.append(f"{what} k={K_LARGE} B={nb}: vs the fixed-order "
+                        f"oracle max score diff {oerr:.3g}, {ties} near-tie "
+                        f"positions differ; {t_l:.3f} ms median of 10")
+        del outs
     print(f"phase 8 fused retrievers: N={n} B={b} k={k}; " + "; ".join(line))
     del rp, fr, retriever, cr, modes, f_dev
 
@@ -2898,9 +3026,23 @@ def main() -> None:
         fused_launches += launched
         q9d = torch.from_numpy(q9).to(DEV)
         f9 = torch.from_numpy(feats9).to(DEV)
-        r9s, r9i = similarity.exact_topk_chunked(
-            q9d, f9, torch.from_numpy(np.asarray(cat9.norms)).to(DEV), k=k)
+        n9_dev = torch.from_numpy(np.asarray(cat9.norms)).to(DEV)
+        r9s, r9i = similarity.exact_topk_chunked(q9d, f9, n9_dev, k=k)
         oerr9, ties9 = compare_oracle(s9, i9, r9s, r9i, TOL_EXACT, "streaming")
+        # at k = K_LARGE: the large-k path once per window
+        fused_topk_large.launches = 0
+        s9l, i9l = sr(q9, K_LARGE)
+        torch.cuda.synchronize()
+        launched9l = fused_topk_large.launches
+        check(launched9l == -(-n9 // w9), f"streaming k={K_LARGE}: "
+              f"{launched9l} large-k launches for {-(-n9 // w9)} windows")
+        launches[f"fused_topk_k{K_LARGE}"] += launched9l
+        r9s, r9i = similarity.exact_topk_chunked(q9d, f9, n9_dev, k=K_LARGE,
+                                                 fixed_order=True)
+        oerr9l, ties9l = compare_oracle(s9l, i9l, r9s, r9i, TOL_EXACT,
+                                        f"streaming k={K_LARGE}")
+        t_sl = wall_ms(lambda: sr(q9, K_LARGE), 3)
+        del s9l, i9l, r9s, r9i
         t_s = wall_ms(lambda: sr(q9, k), 5)
         gbps = n9 * 12 * 4 / t_s / 1e6
         # the parts of one window: host copy out of the memmap, bare pinned
@@ -2939,7 +3081,10 @@ def main() -> None:
           f"row-major window (a transposed copy: {t_win_t:.3f} ms + "
           f"{t_tr:.3f} ms to transpose); "
           f"streaming_link_efficiency {gbps / link:.3f}; retrieve --streaming "
-          "rows equal the library call's")
+          f"rows equal the library call's; k={K_LARGE}: {launched9l} large-k "
+          f"launches, vs the fixed-order oracle max score diff {oerr9l:.3g}, "
+          f"{ties9l} near-tie positions differ, batch {t_sl:.3f} ms median "
+          f"of 3")
 
     # ---- 10. the v2 certified tier (kernel 4) and kernel 1 at W = 512
     f_dev = torch.from_numpy(feats).to(DEV)
@@ -3075,6 +3220,10 @@ def main() -> None:
         kv, ki, kerr = compare_fused(args, k, False, f"fused {dtype}")
         kerr = max(kerr, compare_fused(args, 100, False,
                                        f"fused {dtype} k=100")[2])
+        large_err = max(large_err, compare_fused(
+            args, K_LARGE, False, f"fused {dtype} k={K_LARGE}")[2])
+        t_large = sync_ms(lambda: fused_topk(*args, k=K_LARGE, exact=False),
+                          5)
         t100 = sync_ms(lambda: fused_topk(*args, k=100, exact=False), 10)
         t1k = sync_ms(lambda: fused_topk(qb[:1], qn[:1], *args[2:4], excl[:1],
                                          n, k=k, exact=False), 50)
@@ -3099,7 +3248,8 @@ def main() -> None:
         t_1 = wall_ms(lambda: fr11(q1, k, e1), 20)
         line.append(
             f"{dtype}: {launches[kname]} launch, bitwise equal to plain at "
-            f"k={k} and k=100, kernel {kernels[kname]['ms']:.3f} ms vs plain "
+            f"k={k}, k=100 and k={K_LARGE} ({t_large:.3f} ms), kernel "
+            f"{kernels[kname]['ms']:.3f} ms vs plain "
             f"{kernels[kname]['plain_ms']:.3f} ms, k=100 {t100:.3f} ms, B=1 "
             f"{t1k:.4f} ms; recall@{k} {rec:.4f}, max "
             f"score diff where indices agree {oerr:.3g} (limit {tol:.3g}); "
@@ -3118,12 +3268,31 @@ def main() -> None:
     check(perr <= TOL_EXACT, f"prefilter scores differ from the oracle's by {perr}")
     t_pb = wall_ms(lambda: pr(queries, k, excl), 20)
     t_p1 = wall_ms(lambda: pr(q1, k, e1), 20)
+    # k = K_LARGE over 4096 bf16 candidates (kernel 3's large-k path at k =
+    # 4096 on bf16 storage): the rank-1000 and rank-4096 scores of these
+    # queries lie ~0.015 apart, several times a bf16 cosine's error
+    pr_l = PrefilterRetriever(feats, norms, None, DEV, prefilter=4096)
+    fused_topk_large.launches = 0
+    sp_l, ip_l = pr_l(queries, K_LARGE, excl)
+    torch.cuda.synchronize()
+    pre_l = fused_topk_large.launches
+    check(pre_l > 0, f"prefilter k={K_LARGE}: the large-k path did not launch")
+    perr_l, pties_l = compare_oracle(sp_l, ip_l, rs_l, ri_l, TOL_EXACT,
+                                     f"prefilter k={K_LARGE}")
+    t_pl = wall_ms(lambda: pr_l(queries, K_LARGE, excl), 5)
+    del pr_l, sp_l, ip_l, rs_l, ri_l
     print(f"phase 11 bf16 tiers: N={n} B={b} k={k}; " + "; ".join(line)
           + f"; PrefilterRetriever(prefilter=64): recall@{k} {rec_p:.4f}, max "
           f"score diff where indices agree {perr:.3g}, batch {t_pb:.3f} ms "
-          f"({b / t_pb * 1e3:.0f} q/s), B=1 {t_p1:.3f} ms")
+          f"({b / t_pb * 1e3:.0f} q/s), B=1 {t_p1:.3f} ms; "
+          f"PrefilterRetriever(prefilter=4096) at k={K_LARGE}: {pre_l} "
+          f"large-k launch, vs the fixed-order oracle max score diff "
+          f"{perr_l:.3g}, {pties_l} near-tie positions differ, batch "
+          f"{t_pl:.3f} ms")
     del pr, f_dev
 
+    for nm in (f"fused_topk_k{K_LARGE}", f"fused_topk_k{K_LARGE}_b1"):
+        kernels[nm]["max_abs_err"] = large_err     # phases 7 and 11
     kernels["fused_topk"] = dict(
         source=f"{CSRC}/fused_topk.cu",
         replaces=f"{PALLAS}:52", max_abs_err=fused_err,

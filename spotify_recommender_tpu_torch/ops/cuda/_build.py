@@ -82,6 +82,13 @@ SERVING = Library("serving", (
                        _P, _P, _P, _P),
     # fq, k, exact, bf16, out (int)
     "srt_fused_blocks_per_sm": (_I64, _I64, _I64, _I64, _P),
+    # q, qn, ft, ft_sd, ft_sc, cn, excl, b, fq, fc, np, valid, k, exact,
+    # bf16, eps, nsplit, split_cols, cap, keys, ov, oi, stream
+    "srt_fused_topk_large": (_P, _P, _P, _I64, _I64, _P, _P, _I64, _I64,
+                             _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I64,
+                             _I64, _I64, _P, _P, _P, _P),
+    # fq, exact, bf16, out (int)
+    "srt_fused_large_blocks_per_sm": (_I64, _I64, _I64, _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
     # q, qn, q2, b, f, stream

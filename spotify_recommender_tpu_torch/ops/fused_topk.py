@@ -52,8 +52,9 @@ TPU or on XLA (also listed in ROADMAP.md section 3):
   `build_certified_layout`), and so is the bf16x2 fused catalog;
 - bf16 dots add their exact products in fp32 in one fixed order, so the
   kernel and its plain version agree bitwise (the MXU has its own order);
-- on CUDA the bin scans take W <= KERNEL_MAX_BINS, and kernel 3 (so the
-  prefilter's candidate count too) k <= KERNEL_MAX_K.
+- on CUDA the bin scans take W <= KERNEL_MAX_BINS.  Kernel 3 takes any k,
+  as the JAX kernel does: k <= 128 on its warp lists, above on its large-k
+  path (ops/cuda/fused.py).
 """
 
 from __future__ import annotations
@@ -362,8 +363,8 @@ class PrefilterRetriever:
 
     Not exactness-guaranteed: a true top-k item can fall outside the bf16
     top-C.  The JAX package keeps it for API compatibility (superseded by
-    the certified tier).  C is at most kernel 3's KERNEL_MAX_K (128):
-    larger requests raise ValueError."""
+    the certified tier).  Any C: above 128 kernel 3 takes its large-k
+    path."""
 
     def __init__(
         self,

@@ -221,7 +221,16 @@ class TestPrefilterRetriever:
         np.testing.assert_array_equal(i.numpy(), ri)
 
     def test_candidates_beyond_the_kernel_limit_raise(self):
-        feats = make_data(8, n=500)[0]
+        """C = max(k, prefilter) = 200 candidates, above the old limit of
+        128, no longer raises: kernel 3's large-k path gives the bf16
+        top-200, and the rerank equals the JAX package's."""
+        feats, rows, q = make_data(8, n=500, b=4)
         pr = PrefilterRetriever(feats, None, None, CPU, prefilter=200)
-        with pytest.raises(ValueError, match="128"):
-            pr(feats[:2], 10)
+        s, i = pr(q, 10, rows)
+        jp = JPrefilterRetriever(feats, config=JConfig(**JCFG),
+                                 prefilter=200, interpret=True)
+        js, ji = jp(jnp.asarray(q), 10, jnp.asarray(rows, jnp.int32))
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(s.numpy(), np.asarray(js), rtol=0,
+                                   atol=1e-6)
+        assert not (i.numpy() == rows[:, None]).any()

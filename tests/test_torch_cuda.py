@@ -12,6 +12,8 @@ These repeat, at a small size, the kernel phases of chip_smoke.py.
 import numpy as np
 import pytest
 import torch
+from test_torch_fused_large_k_select import KINDS as LARGE_KINDS
+from test_torch_fused_large_k_select import large_inputs
 from test_torch_fused_select import tie_inputs
 
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
@@ -25,8 +27,12 @@ from spotify_recommender_tpu_torch.experiments import (
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.cuda import ablation, proto_scans
 from spotify_recommender_tpu_torch.ops.cuda.fused import (
+    LARGE_SCRATCH_CEILING,
+    SMALL_K_MAX,
+    _large_plan,
     _splits,
     fused_topk,
+    fused_topk_large,
     fused_topk_plain,
 )
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import scan_v2, scan_v2_plain
@@ -406,10 +412,138 @@ def test_fused_topk_bitwise_equals_plain(cuda, exact, n, b, k, layout, data):
 
 
 def test_fused_topk_rejects_k_above_limit(cuda):
+    """k > 128 raised before the large-k path; now it launches that path
+    (its own counter, not the warp-list kernel's), bitwise its plain
+    version, and k < 1 still raises."""
     f, q, excl = _fused_inputs(cuda, 300, 2, seed=0)
-    with pytest.raises(ValueError, match="128"):
-        fused_topk(q, similarity.row_norms(q), f.t(), similarity.row_norms(f),
-                   excl, 300, k=129, exact=True)
+    args = (q, similarity.row_norms(q), f.t(), similarity.row_norms(f), excl,
+            300)
+    small, large = fused_topk.launches, fused_topk_large.launches
+    ov, oi = fused_topk(*args, k=SMALL_K_MAX + 1, exact=True)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == small
+    assert fused_topk_large.launches == large + 1
+    pv, pi = fused_topk_plain(*args, k=SMALL_K_MAX + 1, exact=True)
+    assert torch.equal(oi, pi) and torch.equal(ov, pv)
+    with pytest.raises(ValueError, match="k >= 1"):
+        fused_topk(*args, k=0, exact=True)
+
+
+LARGE_N = 20011            # valid = N - 7; the last split is partial
+
+
+def _instance_operands(cuda, f, q, instance):
+    """(queries, q_norms, features_t, norms) of kernel 3's instance for raw
+    rows f and queries q on the card: "exact" and "prenormalized" fp32,
+    "bfloat16", "bfloat16x2" (its [qh, ql, ql, qh] against [hi; lo])."""
+    norms = similarity.row_norms(f)
+    qn = similarity.row_norms(q)
+    if instance == "exact":
+        return q, qn, f.t().contiguous(), norms
+    qu = q / qn.clamp_min(1e-30)[:, None]
+    if instance == "prenormalized":
+        fu = f / norms.clamp_min(1e-30)[:, None]
+        return qu, qn, fu.t().contiguous(), norms
+    fr = FusedRetriever(f.cpu().numpy(), None, RetrievalConfig(
+        dtype=instance, exact_scores=False), cuda)
+    if instance == "bfloat16":
+        return qu.to(torch.bfloat16), qn, fr.features_t, fr.norms
+    qh, ql = split_bf16x2_plain(qu)
+    return torch.cat([qh, ql, ql, qh], dim=1), qn, fr.features_t, fr.norms
+
+
+def _held_to_plain_large(args, k, exact):
+    """The large-k path on the card, its launches counted, against the plain
+    version: indices and values bitwise; returns the values."""
+    b = args[0].shape[0]
+    chunk = _large_plan(b, args[2].shape[1], args[0].device,
+                        fq=args[0].shape[1], k=k, exact=exact,
+                        bf16=args[2].dtype == torch.bfloat16)[0]
+    small, large = fused_topk.launches, fused_topk_large.launches
+    ov, oi = fused_topk(*args, k=k, exact=exact)
+    torch.cuda.synchronize()
+    assert fused_topk.launches == small
+    assert fused_topk_large.launches == large + -(-b // chunk)
+    pv, pi = fused_topk_plain(*args, k=k, exact=exact)
+    assert torch.equal(oi, pi), (oi != pi).sum().item()
+    assert torch.equal(ov, pv)
+    assert torch.equal(torch.signbit(ov), torch.signbit(pv))   # -0.0 kept
+    valid = args[5]
+    assert (oi < valid).all()
+    excl = args[4]
+    assert not ((oi == excl[:, None]) & (excl[:, None] >= 0)).any()
+    assert torch.equal(oi == -1, ov == float("-inf"))
+    if k > valid:                                   # unfilled: (-inf, -1)
+        assert ((oi == -1).sum(dim=1) >= k - valid).all()
+    return ov
+
+
+@pytest.mark.parametrize("b", [1, 5, 1024])
+@pytest.mark.parametrize("k", [129, 256, 1000, 4096, "valid", "valid+50"])
+@pytest.mark.parametrize("instance",
+                         ["exact", "prenormalized", "bfloat16", "bfloat16x2"])
+def test_fused_topk_large_bitwise_equals_plain(cuda, instance, k, b):
+    f, q, excl = _fused_inputs(cuda, LARGE_N, b, seed=b + 3)
+    valid = LARGE_N - 7
+    k = {"valid": valid, "valid+50": valid + 50}.get(k, k)
+    args = (*_instance_operands(cuda, f, q, instance), excl, valid)
+    _held_to_plain_large(args, k, instance == "exact")
+
+
+@pytest.mark.parametrize("k", [1, 10, 127, 128])
+def test_fused_topk_large_path_at_small_k_bitwise_equals_plain(cuda, k):
+    """`fused_topk_large` takes any k >= 1 (`fused_topk` sends it only k >
+    128): the same answers at the warp lists' k, one launch each."""
+    f, q, excl = _fused_inputs(cuda, 9001, 17, seed=k)
+    args = (*_instance_operands(cuda, f, q, "exact"), excl, 9001 - 7)
+    small, large = fused_topk.launches, fused_topk_large.launches
+    ov, oi = fused_topk_large(*args, k=k, exact=True)
+    torch.cuda.synchronize()
+    assert fused_topk_large.launches == large + 1
+    assert fused_topk.launches == small
+    pv, pi = fused_topk_plain(*args, k=k, exact=True)
+    assert torch.equal(oi, pi) and torch.equal(ov, pv)
+
+
+def test_fused_topk_large_batch_chunks_bitwise_equal_plain(cuda):
+    """A batch past the plan's scratch budget runs in chunks (two here),
+    one launch each, through one scratch; bitwise as one launch would be."""
+    n, k = 3001, 129
+    chunk = _large_plan(10**7, n, cuda, fq=12, k=k, exact=True,
+                        bf16=False)[0]
+    f, q, excl = _fused_inputs(cuda, n, chunk + 5, seed=11)
+    args = (*_instance_operands(cuda, f, q, "exact"), excl, n - 7)
+    _held_to_plain_large(args, k, True)
+
+
+def test_fused_topk_large_past_the_scratch_ceiling_bitwise_equals_plain(cuda):
+    """k = 10^5 on 10^6 columns: one block's buffers take 25.6 MB, so the
+    plan keeps the scratch under LARGE_SCRATCH_CEILING by one split and
+    batch chunks (two launches here); bitwise the plain version."""
+    n, k = 10**6, 10**5
+    chunk, nsplit, _, cap = _large_plan(10**7, n, cuda, fq=12, k=k,
+                                        exact=True, bf16=False)
+    assert nsplit == 1 and chunk * cap * 8 <= LARGE_SCRATCH_CEILING
+    f, q, excl = _fused_inputs(cuda, n, chunk + 10, seed=13)
+    args = (*_instance_operands(cuda, f, q, "exact"), excl, n - 7)
+    _held_to_plain_large(args, k, True)
+
+
+@pytest.mark.parametrize("k", [129, 1000])
+@pytest.mark.parametrize("data", LARGE_KINDS)
+@pytest.mark.parametrize("instance", ["exact", "prenormalized", "bfloat16x2"])
+def test_fused_topk_large_ties_and_cuts_bitwise_equal_plain(cuda, instance,
+                                                             data, k):
+    """Scores that rise with the column (every buffer cut again every few
+    tiles), all-equal scores, duplicates across the card's split edges,
+    zero-norm rows, zeros of both signs, at B = 17 (two query tiles)."""
+    b = 17
+    edges = range(0, LARGE_N, _large_plan(b, LARGE_N, cuda, fq=12, k=k,
+                                          exact=True, bf16=False)[2])
+    feats, q, excl = large_inputs(data, LARGE_N, b, seed=k + 5, edges=edges)
+    f, q, excl = (torch.from_numpy(a).to(cuda) for a in (feats, q, excl))
+    args = (*_instance_operands(cuda, f, q, instance), excl, LARGE_N - 7)
+    _held_to_plain_large(args, k, instance == "exact")
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "bfloat16x2"])

@@ -27,7 +27,7 @@ from spotify_recommender_tpu.ops.similarity import exact_topk
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.data.catalog import Catalog
 from spotify_recommender_tpu_torch.ops.cuda.fused import (
-    KERNEL_MAX_K,
+    SMALL_K_MAX,
     fused_topk,
 )
 from spotify_recommender_tpu_torch.ops.fused_topk import (
@@ -208,12 +208,23 @@ class TestRetrieverState:
             JFusedRetriever(feats, config=JConfig(dtype=dtype))
 
     def test_k_above_the_kernel_limit_raises(self):
+        """k above the warp lists' SMALL_K_MAX (the old limit, 128) no
+        longer raises: kernel 3 takes it on its large-k path, and the
+        answer is the JAX kernel's at k = 129 and past the catalog's 300
+        rows (unfilled slots (-inf, -1)).  Only k < 1 raises."""
         feats = random_features(300, seed=41)
         fr = FusedRetriever(feats, None, None, CPU)
-        with pytest.raises(ValueError, match=str(KERNEL_MAX_K)):
-            fr(feats[:2], KERNEL_MAX_K + 1)
-        s, i = fr(feats[:2], KERNEL_MAX_K)
-        assert s.shape == i.shape == (2, KERNEL_MAX_K)
+        jfr = JFusedRetriever(feats, config=JConfig(**JCFG), interpret=True)
+        for k in (SMALL_K_MAX + 1, 337):
+            s, i = fr(feats[:2], k, np.arange(2))
+            assert s.shape == i.shape == (2, k)
+            js, ji = jfr(jnp.asarray(feats[:2]), k,
+                         jnp.asarray(np.arange(2), jnp.int32))
+            assert_same((np.asarray(js), np.asarray(ji)),
+                        (s.numpy(), i.numpy()))
+        assert ((i == -1).sum(dim=1) == 337 - 299).all()
+        with pytest.raises(ValueError, match="k >= 1"):
+            fr(feats[:2], 0)
 
     def test_one_shot_wrapper_runs_on_the_card_by_default(self):
         """`fused_score_topk` without a device asks for CUDA: on a card its

@@ -12,7 +12,8 @@ by default) through its entry, and times it with CUDA events
 round each checkout's outputs and per-tile digests are also held to its
 own plain version (NaN-aware).  Prints one JSON line per (case,
 checkout), its median over the rounds beside each round's time, and the
-card's name and power limit; --out writes them as one JSON file.
+card's name and power limit; --out writes them as one JSON file (the
+runner, tools/sweep_runner.py, is fused_k_sweep.py's too).
 
     python3 tools/ablation_sweep.py --parent DIR [--rounds 2] [--reps 10]
         [--n 1000000] [--b 1024] [--cases r2c.fastguard,...] [--out FILE]
@@ -22,10 +23,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
-import subprocess
-import sys
 from pathlib import Path
+
+import sweep_runner
 
 ROOT = Path(__file__).resolve().parents[1]
 PATHS = ("r2", "r2b", "r2c", "r2d")
@@ -35,18 +35,15 @@ def worker(root: Path, n: int, b: int, reps: int, wanted: set,
            check: bool) -> None:
     """Time (and with `check`, hold to plain) every case of the checkout
     at `root`; one JSON line per case."""
-    sys.path.insert(0, str(root))
+    sweep_runner.import_checkout(root, "ablation_sweep")
     import importlib
 
     import torch
 
-    import spotify_recommender_tpu_torch as pkg
     from spotify_recommender_tpu_torch.core.timing import sync_ms
     from spotify_recommender_tpu_torch.ops import similarity
     from spotify_recommender_tpu_torch.ops.cuda import ablation
 
-    if not Path(pkg.__file__).resolve().is_relative_to(root.resolve()):
-        sys.exit(f"ablation_sweep: imported {pkg.__file__}, not {root}'s")
     similarity.disable_tf32()
     dev = torch.device("cuda:0")
     for key in PATHS:
@@ -86,39 +83,9 @@ def main() -> None:
         return
     if a.parent is None:
         ap.error("--parent is required")
-    roots = {"parent": a.parent.resolve(), "change": ROOT}
-    times, equal = {}, {}
-    for r in range(a.rounds):
-        for build in (("parent", "change") if r % 2 == 0
-                      else ("change", "parent")):
-            cmd = [sys.executable, __file__, "--worker", str(roots[build]),
-                   "--n", str(a.n), "--b", str(a.b), "--reps", str(a.reps),
-                   "--cases", a.cases, *(["--check"] if r == 0 else [])]
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode:
-                sys.exit(f"ablation_sweep: {build} failed\n{res.stderr}")
-            for ln in res.stdout.splitlines():
-                if ln.startswith("{"):
-                    row = json.loads(ln)
-                    times.setdefault((row["case"], build), []).append(
-                        row["ms"])
-                    if "bitwise_plain" in row:
-                        equal[row["case"], build] = row["bitwise_plain"]
-    rows = []
-    for (case, build), ts in times.items():
-        row = dict(case=case, build=build, ms=statistics.median(ts),
-                   rounds=ts, bitwise_plain=equal.get((case, build)))
-        rows.append(row)
-        print(json.dumps(row), flush=True)
-    gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"card: {gpu}", flush=True)
-    if a.out:
-        a.out.parent.mkdir(parents=True, exist_ok=True)
-        a.out.write_text(json.dumps(dict(card=gpu, rows=rows), indent=1))
-    if not all(equal.values()):
-        sys.exit("ablation_sweep: a case differs from its plain version")
+    sweep_runner.run(__file__, {"parent": a.parent.resolve(), "change": ROOT},
+                     ["--n", str(a.n), "--b", str(a.b), "--reps", str(a.reps),
+                      "--cases", a.cases], a.rounds, a.out)
 
 
 if __name__ == "__main__":
