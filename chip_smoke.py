@@ -33,6 +33,23 @@ its plain torch version on the card, runs the reference-style CLI on a
   the phase-6 cell and B = 1, kernel 4 against its plain version (B =
   1024, 32, 1), and kernel 1 at W = 512 (`scan_bins=512`) against its
   plain version and the oracle;
+- phase 10b: kernels 1 and 4 past their flat instances (the wide route
+  of csrc/scan_wide.cu), each shape driven through the tier a user calls
+  and held bitwise against its plain version as a kernels-line entry:
+  the certified tier at W = 2048, 4096 and 8192 (bitwise the
+  fixed-order oracle), at W = 4096 also B = 1 and k = 5000 (B = 1024
+  and B = 1: no
+  large-k warning, fallbacks and escalations per batch, its time beside
+  the default W = 128's full-oracle route); depth 5 with escalation to 8
+  at W = 128 and depth 8 at W = 256 (depths 5, 6, 8 bitwise at both W);
+  empty slots (W = 2048, depth 6 over W + 100 live columns, every slot
+  selected) and dots of -0.0 and +0.0 (`signed_zero_inputs`), bitwise
+  their plain versions, sign bits included; a
+  clumpy catalog (5 rows of each query's top-10 in one bin) under
+  `scan_escalate=6`: the depth-6 rescan runs and certifies; the approx
+  tier at k = 5000 (W = 2048, depth 3: every slot filled, recall@10 >=
+  0.99); the 1M x 64 catalog of phase 16 at W = 512 and 1024 and under
+  v2 (kernel 4), and 250,000 x 256 at W = 128;
 - phase 11: `FusedRetriever` over bf16 and bf16x2 storage (kernel 3's bf16
   instances, also bitwise at k = 1000) and `PrefilterRetriever`, at the
   phase-6 cell, and `PrefilterRetriever(prefilter=4096)` at k = 1000;
@@ -118,7 +135,9 @@ its plain torch version on the card, runs the reference-style CLI on a
   certified tier, with fallbacks and escalations summed over shards and a
   `torch.profiler` breakdown; kernel 3 per shard (the Retriever's backend
   for a bf16 dtype) against the same answer; a 2-D data=2 x catalog=2
-  mesh; `save_sharded_catalog` / `load_sharded_catalog` / `from_artifact`
+  mesh; the certified tier at W = 2048 on 4 shards of the first 2.5M
+  rows (kernel 1's wide route per shard), bitwise the fixed-order
+  oracle; `save_sharded_catalog` / `load_sharded_catalog` / `from_artifact`
   at 10M; `retrieve --catalog <sharded dir> --mesh catalog=1` through the
   CLI; kernels 1, 2 and 3 at a shard's shapes against their plain versions
   (the "*_sharded" entries; kernel 1's plain version in column chunks):
@@ -252,6 +271,7 @@ from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import (  # noqa: E402
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (  # noqa: E402
     bin_structures,
     merge_bins,
+    scan_route,
     scan_v3,
     scan_v3_plain,
     split_plane_dots,
@@ -513,6 +533,60 @@ KERNEL3_LARGE_REGS = {
     "fused_large_merge_kernel<>": (32, 0),
 }
 
+# the serving library's bin-scan instances (kernels 1 and 4), as measured
+# on the H100 machine (PERF.md, section 6): (registers, spill-store bytes).
+# The flat ones (`scan_kernel<W,D,epi>`, `merge_kernel<W,D>`) are
+# bin_scan.cuh's; `wide_*` and `select_kernel` are csrc/scan_wide.cu's
+# (`<0,...>`: the runtime depth)
+BIN_SCAN_REGS = {
+    "merge_kernel<128,1>": (32, 0), "merge_kernel<128,2>": (32, 0),
+    "merge_kernel<128,3>": (32, 0), "merge_kernel<128,4>": (46, 0),
+    "merge_kernel<256,1>": (32, 0), "merge_kernel<256,2>": (32, 0),
+    "merge_kernel<256,3>": (46, 0), "merge_kernel<256,4>": (46, 0),
+    "merge_kernel<384,1>": (40, 0), "merge_kernel<384,2>": (40, 0),
+    "merge_kernel<384,3>": (40, 0), "merge_kernel<384,4>": (40, 0),
+    "merge_kernel<512,1>": (32, 0), "merge_kernel<512,2>": (32, 0),
+    "merge_kernel<512,3>": (46, 0), "merge_kernel<512,4>": (46, 0),
+    "merge_kernel<640,1>": (32, 0), "merge_kernel<640,2>": (32, 0),
+    "merge_kernel<640,3>": (32, 0), "merge_kernel<640,4>": (32, 0),
+    "merge_kernel<768,1>": (40, 0), "merge_kernel<768,2>": (40, 0),
+    "merge_kernel<768,3>": (40, 0), "merge_kernel<768,4>": (40, 0),
+    "merge_kernel<896,1>": (32, 0), "merge_kernel<896,2>": (32, 0),
+    "merge_kernel<896,3>": (32, 0), "merge_kernel<896,4>": (32, 0),
+    "merge_kernel<1024,1>": (32, 0), "merge_kernel<1024,2>": (32, 0),
+    "merge_kernel<1024,3>": (32, 0), "merge_kernel<1024,4>": (50, 0),
+    "scan_kernel<128,1,0>": (166, 0), "scan_kernel<128,2,0>": (204, 0),
+    "scan_kernel<128,3,0>": (201, 0), "scan_kernel<128,3,1>": (249, 0),
+    "scan_kernel<128,4,0>": (224, 0), "scan_kernel<256,1,0>": (178, 0),
+    "scan_kernel<256,2,0>": (204, 0), "scan_kernel<256,3,0>": (201, 0),
+    "scan_kernel<256,3,1>": (249, 0), "scan_kernel<256,4,0>": (224, 0),
+    "scan_kernel<384,1,0>": (80, 0), "scan_kernel<384,2,0>": (111, 0),
+    "scan_kernel<384,3,0>": (126, 0), "scan_kernel<384,3,1>": (150, 0),
+    "scan_kernel<384,4,0>": (144, 0), "scan_kernel<512,1,0>": (87, 0),
+    "scan_kernel<512,2,0>": (99, 0), "scan_kernel<512,3,0>": (128, 0),
+    "scan_kernel<512,3,1>": (128, 0), "scan_kernel<512,4,0>": (128, 0),
+    "scan_kernel<640,1,0>": (41, 0), "scan_kernel<640,2,0>": (48, 0),
+    "scan_kernel<640,3,0>": (72, 0), "scan_kernel<640,3,1>": (91, 0),
+    "scan_kernel<640,4,0>": (79, 0), "scan_kernel<768,1,0>": (39, 0),
+    "scan_kernel<768,2,0>": (64, 0), "scan_kernel<768,3,0>": (72, 0),
+    "scan_kernel<768,3,1>": (63, 0), "scan_kernel<768,4,0>": (62, 0),
+    "scan_kernel<896,1,0>": (56, 0), "scan_kernel<896,2,0>": (65, 0),
+    "scan_kernel<896,3,0>": (55, 0), "scan_kernel<896,3,1>": (63, 0),
+    "scan_kernel<896,4,0>": (62, 0), "scan_kernel<1024,1,0>": (57, 0),
+    "scan_kernel<1024,2,0>": (64, 0), "scan_kernel<1024,3,0>": (63, 0),
+    "scan_kernel<1024,3,1>": (62, 0), "scan_kernel<1024,4,0>": (63, 0),
+    "select_kernel<>": (32, 0), "wide_merge_kernel<0>": (55, 0),
+    "wide_merge_kernel<1>": (32, 0), "wide_merge_kernel<2>": (32, 0),
+    "wide_merge_kernel<3>": (32, 0), "wide_merge_kernel<4>": (32, 0),
+    "wide_merge_kernel<5>": (47, 0), "wide_merge_kernel<6>": (44, 0),
+    "wide_merge_kernel<7>": (44, 0), "wide_merge_kernel<8>": (52, 0),
+    "wide_scan_kernel<0,0>": (253, 0), "wide_scan_kernel<1,0>": (168, 0),
+    "wide_scan_kernel<2,0>": (218, 0), "wide_scan_kernel<3,0>": (212, 0),
+    "wide_scan_kernel<3,1>": (212, 0), "wide_scan_kernel<4,0>": (228, 0),
+    "wide_scan_kernel<5,0>": (165, 0), "wide_scan_kernel<6,0>": (194, 0),
+    "wide_scan_kernel<7,0>": (211, 0), "wide_scan_kernel<8,0>": (227, 0),
+}
+
 def ptxas_reports(log: str) -> list:
     """(`name<template args>`, registers, spill-store bytes) of each entry
     function in an nvcc log's ptxas report."""
@@ -542,7 +616,9 @@ def _short_name(mangled: str) -> str:
         parts.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
     rest = mangled[i:]
-    args = re.findall(r"L[ib](\d+)E", rest.split("EEv")[0])
+    # integer and bool arguments, and bin_scan::Epi values (kernel 4's
+    # epilogue instances apart from kernel 1's)
+    args = re.findall(r"L(?:[ib]|N\w*?3EpiE)(\d+)E", rest.split("EEv")[0])
     if "bfloat16" in rest.split("EEv")[0]:
         args.append("bf16")
     return f"{parts[-1] if parts else mangled[:40]}<{','.join(args)}>"
@@ -1024,6 +1100,358 @@ def approx_phase(cat: Catalog, queries, excl, fixed, kernels: dict,
           f"bitwise its plain version: batch "
           f"{kernels['scan_v3_approx']['ms']:.3f} ms, B=1 "
           f"{kernels['scan_v3_approx_b1']['ms']:.4f} ms; setup {t_setup:.1f} s")
+
+
+F256_ROWS = 250_000        # phase 10b's 256-dim catalog
+
+
+def scan_entry(qq, ft, w, depth, topc, ncols, launched, reps=10,
+               plain_reps=1, v2=None, chunked=False):
+    """A kernels-line entry of kernel 1 (or 4, with `v2` = (qn, norms,
+    excl, valid)) at one shape: bitwise its plain version (in column
+    chunks where `chunked`), card ms, plain ms, the bound over the scanned
+    columns, and `launched`, the launches of the main-path run that drove
+    this shape (popped into the launches dict by the caller)."""
+    if v2 is None:
+        call = lambda: scan_v3(qq, ft, w=w, depth=depth, topc=topc,  # noqa
+                               ncols=ncols)
+        pf = scan_v3_plain_chunked if chunked else scan_v3_plain
+        plain = lambda: pf(qq, ft, w=w, depth=depth, topc=topc,  # noqa
+                           ncols=ncols)
+        real, extra, src, rep = ft[:, :ncols], (), "scan_v3.cu", 1069
+    else:
+        qn, nrm, ex, valid = v2
+        call = lambda: scan_v2(qq, qn, ft, nrm, ex, valid, w=w,  # noqa
+                               eps=1e-8, topc=topc)
+        plain = lambda: scan_v2_plain(qq, qn, ft, nrm, ex, valid,  # noqa
+                                      w=w, eps=1e-8, topc=topc)
+        real, extra, src, rep = ft, (qn, nrm, ex), "scan_v2.cu", 834
+    route = scan_route(qq.shape[1] // 4, w, depth, topc)
+    shape = (f"{qq.shape[0]} x {real.shape[1]}, F {qq.shape[1] // 4}, W {w}, "
+             f"depth {depth}, topc {topc}, {route} route")
+    out = call()
+    err = check_bitwise(out, plain(), f"kernel at {shape}")
+    return dict(
+        source=f"{CSRC}/{src}" + ("" if route == "flat"
+                                  else f" + {CSRC}/scan_wide.cu"),
+        replaces=f"{PALLAS}:{rep}", max_abs_err=err, shape=shape,
+        ms=sync_ms(call, reps), plain_ms=sync_ms(plain, plain_reps),
+        **bound(dot_flops(qq, real, qq.shape[1]), "bf16", qq, real, *extra,
+                *out),
+        library_ms=None, launches=launched,
+    )
+
+
+def check_signed_bitwise(out, plain, what: str) -> None:
+    """`check_bitwise`, and the values' sign bits equal (torch.equal takes
+    -0.0 for +0.0)."""
+    check_bitwise(out, plain, what)
+    check(torch.equal(torch.signbit(out[0]), torch.signbit(plain[0])),
+          f"{what}: the sign of a zero differs from plain")
+
+
+def empty_slots_check(q2, ft, w: int, depth: int = 6) -> str:
+    """Kernel 1 at W bins and `depth` over W + 100 live columns, every
+    slot selected (two selection chunks): most bins hold one column, so
+    the output ends in empty slots (-inf, -1), in slot order, bitwise the
+    plain version's."""
+    nc, topc = w + 100, depth * w
+    out = scan_v3(q2, ft, w=w, depth=depth, topc=topc, ncols=nc)
+    plain = scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc, ncols=nc)
+    check_signed_bitwise(out, plain, f"empty slots, W={w} depth {depth}")
+    empty = out[1] == -1
+    check(int(empty.sum()) == q2.shape[0] * (topc - nc)
+          and bool(torch.isinf(out[0][empty]).all()),
+          f"empty slots, W={w} depth {depth}: {int(empty.sum())} empty")
+    return (f"W={w} depth {depth} over {nc} live columns, top-{topc}: "
+            f"{int(empty.sum())} empty slots (-inf, -1), bitwise plain")
+
+
+def signed_zero_inputs(np_: int, b: int, f: int = 12):
+    """(q2, ft) on the card whose split-plane dots are -0.0, +0.0 and
+    subnormals of both signs: feature 0's hi plane is +-2^-80 (a product
+    with the queries' 2^-80 that rounds to a signed zero), +-2^-60 (a
+    subnormal) or 0; every other product is -0.0, which keeps the sign of
+    the accumulator."""
+    rng = np.random.default_rng(80)
+    hi0 = rng.choice(np.array([-2.0**-60, -2.0**-80, 0.0, 2.0**-80,
+                               2.0**-60], np.float32), np_)
+    hi = np.full((f, np_), -0.0, np.float32)
+    hi[0] = hi0
+    lo = np.full((f, np_), -0.0, np.float32)
+    qh = np.zeros((b, f), np.float32)
+    qh[:, 0] = 2.0**-80 * rng.choice([1.0, 2.0], b)
+    q = torch.from_numpy(np.concatenate([qh, np.zeros_like(qh),
+                                         np.zeros_like(qh), qh], 1))
+    ft = torch.from_numpy(np.concatenate([hi, lo]))
+    return (q.to(torch.bfloat16).to(DEV).contiguous(),
+            ft.to(torch.bfloat16).to(DEV).contiguous())
+
+
+def signed_zero_check() -> str:
+    """Kernel 1 on dots of -0.0, +0.0 and tiny values at W = 2048 (the
+    wide route; all 4096 slots, then top-300) and W = 128 (the flat
+    instances, top-32): -0.0 ties +0.0, the lower slot first, bitwise the
+    plain version, sign bits included."""
+    q2, ft = signed_zero_inputs(2048 * 16, 64)
+    negz = 0
+    for w, topc in ((2048, 4096), (2048, 300), (128, 32)):
+        out = scan_v3(q2, ft, w=w, depth=2, topc=topc)
+        plain = scan_v3_plain(q2, ft, w=w, depth=2, topc=topc)
+        check_signed_bitwise(out, plain, f"signed zeros, W={w} top-{topc}")
+        negz += int(((out[0] == 0) & torch.signbit(out[0])).sum())
+    check(negz > 0, "signed zeros: no -0.0 reached the outputs")
+    return (f"dots of -0.0 / +0.0 / subnormals at W=2048 (top-4096, "
+            f"top-300) and W=128 (top-32): {negz} values of -0.0 out, "
+            "bitwise plain, sign bits included")
+
+
+def clumpy_catalog(feats: np.ndarray, rows: np.ndarray, per: int = 5):
+    """`feats` with `per` near-copies of each query row planted in one bin
+    (bin j for query j, W = 128), distinct cosines just under 1: a batch
+    whose top-10 holds `per` rows of one bin, which depth 2 cannot
+    certify and depth 6 can."""
+    f = feats.copy()
+    rng = np.random.default_rng(61)
+    g0 = len(f) // 128 // 3           # the planted rows' first W-group
+    for j, r in enumerate(rows):
+        for t in range(per):
+            c = j + 128 * (g0 + per * j + t)
+            f[c] = f[r] * (1.0 + 1e-3 * rng.standard_normal(f.shape[1])
+                           ).astype(np.float32)
+    return f
+
+
+def shapes_phase(cat: Catalog, feats, norms, queries, excl, fixed, cublas,
+                 kernels: dict, launches: dict) -> None:
+    """Phase 10b: kernels 1 and 4 at the shapes past their flat instances
+    (W above 1024, depth above 4, wide rows, a large top-C), each driven
+    through the tier a user would call and held bitwise against its plain
+    version; the certified tier at W = 4096 and k = 5000 beside the
+    full-oracle route of the default W; the escalation to depth 6; the
+    approx tier at k = 5000; kernel 4 and kernel 1 on 64-dim rows, kernel
+    1 on 256-dim rows."""
+    t10b = time.perf_counter()
+    base = Retriever(cat, None, DEV)          # W = 128: k = 5000 -> oracle
+    n, b = feats.shape[0], queries.shape[0]
+    qn = similarity.row_norms(queries)
+    q2 = query_prologue(queries, qn)
+    q1, e1 = queries[:1], excl[:1]
+    f_dev = torch.from_numpy(feats).to(DEV)
+    n_dev = torch.from_numpy(norms).to(DEV)
+    line = []
+
+    def drive(r, k, qq=queries, ex=excl):
+        """One batch through retriever `r`; returns (s, i, kernel 1 and 4
+        launches)."""
+        scan_v3.launches = scan_v2.launches = 0
+        s, i = r.retrieve(qq, k=k, exclude_rows=ex)
+        torch.cuda.synchronize()
+        return s, i, scan_v3.launches + scan_v2.launches
+
+    # W past 1024 at depth 2: a certified batch each, kernel 1 at its shape
+    for w in (2048, 4096, 8192):
+        r = Retriever(cat, RetrievalConfig(scan_bins=w), DEV)
+        cr = r.certified
+        check(cr.layout.w == w, f"scan_bins={w}: layout W {cr.layout.w}")
+        s, i, got = drive(r, 10)
+        fb, es = cr.fallbacks, cr.escalations
+        check(got > 0, f"W={w}: kernel 1 did not launch")
+        check_certified(s, i, fixed, cublas, f"W={w} batch")
+        kernels[f"scan_v3_w{w}"] = scan_entry(q2, cr.layout.ft, w, 2, 32, n,
+                                               got)
+        t_b = wall_ms(lambda: r.retrieve(queries, k=10, exclude_rows=excl), 5)
+        line.append(f"W={w}: certified batch bitwise the fixed-order oracle "
+                    f"(fallbacks {fb}, escalations {es}), {t_b:.3f} ms; "
+                    "kernel 1 "
+                    f"{kernels[f'scan_v3_w{w}']['ms']:.4f} ms")
+        if w == 2048:
+            line.append(empty_slots_check(q2, cr.layout.ft, w))
+        if w != 4096:
+            del r, cr
+            continue
+        s, i, got = drive(r, 10, q1, e1)
+        check(got > 0 and torch.equal(i, fixed[1][:1])
+              and torch.equal(s, fixed[0][:1]),
+              f"W=4096 k=10 B=1: not the fixed-order oracle's ({got} "
+              "launches)")
+        t_1 = wall_ms(lambda: r.retrieve(q1, k=10, exclude_rows=e1), 10)
+        line.append(f"W=4096 k=10 B=1: bitwise the oracle, {t_1:.3f} ms")
+        # k = 5000 on the scan (depth 2 x 4096 = 8192 slots), B = 1024 and
+        # B = 1, beside the default W's full-oracle route
+        kk = 5000
+        fx = similarity.exact_topk_chunked(queries, f_dev, n_dev,
+                                           exclude_rows=excl, k=kk,
+                                           fixed_order=True)
+        for qq, ex, tag in ((queries, excl, "B=1024"), (q1, e1, "B=1")):
+            fb0, es0 = cr.fallbacks, cr.escalations
+            s, i, got = drive(r, kk, qq, ex)
+            fb, es = cr.fallbacks - fb0, cr.escalations - es0
+            check(not cr._large_k_warned,
+                  f"W=4096 k={kk}: the large-k warning (oracle route)")
+            check(got > 0, f"W=4096 k={kk} {tag}: kernel 1 did not launch")
+            m = qq.shape[0]
+            check(torch.equal(i, fx[1][:m]) and torch.equal(s, fx[0][:m]),
+                  f"W=4096 k={kk} {tag}: not the fixed-order oracle's")
+            t_scan = wall_ms(lambda: r.retrieve(qq, k=kk, exclude_rows=ex), 3)
+            t_orc = wall_ms(lambda: base.retrieve(qq, k=kk, exclude_rows=ex),
+                            3)
+            if tag == "B=1024":
+                launches_k = got
+            line.append(f"W=4096 k={kk} {tag}: bitwise the fixed-order "
+                        f"oracle, no large-k warning, {got} kernel-1 launches,"
+                        f" fallbacks {fb}, escalations {es}, "
+                        f"{t_scan:.3f} ms vs the "
+                        f"default W=128's full-oracle route {t_orc:.3f} ms")
+        kernels["scan_v3_w4096_c5000"] = scan_entry(
+            q2, cr.layout.ft, w, 2, kk, n, launches_k, reps=5)
+        del fx, r, cr
+    torch.cuda.empty_cache()
+
+    # depth past 4: a depth-5 certified batch with escalation to 8 (W =
+    # 128), a depth-8 batch at W = 256, each depth held bitwise at both W
+    deep = {}
+    for w, depth, esc in ((128, 5, 8), (256, 8, 0)):
+        r = Retriever(cat, RetrievalConfig(scan_bins=w, scan_depth=depth,
+                                           scan_escalate=esc), DEV)
+        s, i, got = drive(r, 10)
+        check_certified(s, i, fixed, cublas, f"W={w} depth {depth} batch")
+        deep[(w, depth)] = (r.certified.layout.ft, got, r.certified.fallbacks,
+                            r.certified.escalations)
+        del r
+    bit = []
+    for w in (128, 256):
+        ft = deep[(w, 5 if w == 128 else 8)][0]
+        for depth in (5, 6, 8):
+            bit.append(compare_scan(q2, ft, depth, 32, w=w, ncols=n)[1])
+    check(all(bit), "kernel 1 at depth 5/6/8: not bitwise")
+    for (w, depth), (ft, got, fb, es) in deep.items():
+        kernels[f"scan_v3_d{depth}"] = scan_entry(q2, ft, w, depth, 32, n, got)
+        line.append(f"W={w} depth {depth}: certified batch bitwise the oracle"
+                    f" ({got} launches, fallbacks {fb}, escalations {es}), "
+                    f"kernel 1 {kernels[f'scan_v3_d{depth}']['ms']:.4f} ms")
+    del deep
+    del base
+    line.append(signed_zero_check())
+
+    # the escalation at depth 6 on a batch that fails at depth 2: 32
+    # queries, each with 5 near-copies planted in one bin
+    rows_c = (np.arange(32) * 7919 + 11) % (n // 3)
+    fc_ = clumpy_catalog(feats, rows_c)
+    nc_ = np.linalg.norm(fc_, axis=1).astype(np.float32)
+    ids = cat.track_ids
+    cat_c = Catalog(fc_, nc_, ids, ids, ids, np.zeros(n, np.int32), ["g"],
+                    np.zeros(11, np.float32), np.ones(11, np.float32))
+    rc = Retriever(cat_c, RetrievalConfig(scan_escalate=6), DEV)
+    qc = torch.from_numpy(fc_[rows_c]).to(DEV)
+    ec = torch.from_numpy(rows_c).to(DEV)
+    s, i, got = drive(rc, 10, qc, ec)
+    fxc = similarity.exact_topk_chunked(
+        qc, torch.from_numpy(fc_).to(DEV), torch.from_numpy(nc_).to(DEV),
+        exclude_rows=ec, k=10, fixed_order=True)
+    check(torch.equal(i, fxc[1]) and torch.equal(s, fxc[0]),
+          "escalate=6: not the fixed-order oracle's")
+    esc6, fb6 = rc.certified.escalations, rc.certified.fallbacks
+    check(esc6 > 0 and got == 2,
+          f"escalate=6: escalations {esc6}, kernel-1 launches {got}")
+    qc2 = query_prologue(qc, similarity.row_norms(qc))
+    kernels["scan_v3_d6_rescan"] = scan_entry(qc2, rc.certified.layout.ft,
+                                              128, 6, 32, n, got)
+    line.append(f"escalate=6 on 32 queries with 5 rows in one bin: "
+                f"escalations {esc6}, fallbacks {fb6} per batch, {got} "
+                f"kernel-1 launches, bitwise the oracle; the depth-6 rescan "
+                f"{kernels['scan_v3_d6_rescan']['ms']:.4f} ms")
+    del rc, cat_c, fc_, nc_, qc, qc2
+    torch.cuda.empty_cache()
+
+    # the approx tier at k = 5000, W = 2048 (depth 3: 6144 slots)
+    ra = Retriever(cat, RetrievalConfig(dtype="bfloat16", scan_bins=2048,
+                                        scan_depth=3), DEV)
+    check(ra.backend == "approx", f"approx backend {ra.backend}")
+    kk = 5000
+    s, i, got = drive(ra, kk)
+    check(bool(((i >= 0) & (i < n)).all()) and bool(torch.isfinite(s).all())
+          and not bool((i == excl[:, None]).any()),
+          f"approx k={kk}: an unfilled slot, an index outside [0, N) or the "
+          "excluded row")
+    rec = recall(i[:, :10], fixed[1])
+    check(rec >= 0.99, f"approx k={kk}: recall@10 {rec}")
+    t_a = wall_ms(lambda: ra.retrieve(queries, k=kk, exclude_rows=excl), 5)
+    c_a = min(max(kk + 8, 32), 3 * 2048)
+    kernels["scan_v3_approx_w2048_c5008"] = scan_entry(
+        q2, ra.approx.ft, 2048, 3, c_a, n, got, reps=5)
+    line.append(f"approx k={kk} W=2048 depth 3: every slot a real row, "
+                f"recall@10 {rec:.4f}, {t_a:.3f} ms a batch, kernel 1 "
+                f"(topc {c_a}) "
+                f"{kernels['scan_v3_approx_w2048_c5008']['ms']:.4f} ms")
+    del ra
+    torch.cuda.empty_cache()
+
+    # wide rows: the 1M x 64 catalog of phase 16 at W = 512 and 1024 and
+    # under v2 (kernel 4); 250,000 x 256 at W = 128
+    feats64, norms64, q64, r64 = benchmark._make_inputs(n, b, 64, 0)
+    qd = torch.from_numpy(q64).to(DEV)
+    ed = torch.from_numpy(r64).long().to(DEV)
+    f64 = torch.from_numpy(feats64).to(DEV)
+    n64 = torch.from_numpy(norms64).to(DEV)
+    fx64 = similarity.exact_topk_chunked(qd, f64, n64, exclude_rows=ed, k=10,
+                                         fixed_order=True)
+    qn64 = similarity.row_norms(qd)
+    q2d = query_prologue(qd, qn64)
+    for name, cfg in (("scan_v3_f64_w512", RetrievalConfig(scan_bins=512)),
+                      ("scan_v3_f64_w1024", RetrievalConfig(scan_bins=1024)),
+                      ("scan_v2_f64", RetrievalConfig(scan="v2"))):
+        cr = CertifiedRetriever(feats64, norms64, cfg, DEV)
+        scan_v3.launches = scan_v2.launches = 0
+        s, i = cr(qd, 10, ed)
+        torch.cuda.synchronize()
+        got = scan_v3.launches + scan_v2.launches
+        fb = cr.fallbacks
+        check(got > 0 and torch.equal(i, fx64[1]) and torch.equal(s, fx64[0]),
+              f"{name}: certified batch not the fixed-order oracle's "
+              f"({got} launches)")
+        dl = cr.layout
+        v2 = (qn64, dl.nrm_row, ed, n) if cfg.scan == "v2" else None
+        kernels[name] = scan_entry(q2d, dl.ft, dl.w, dl.depth, 32, n, got,
+                                   reps=5, v2=v2)
+        line.append(f"F=64 {name}: certified batch bitwise the oracle "
+                    f"(fallbacks {fb}), kernel "
+                    f"{kernels[name]['ms']:.3f} ms")
+        del cr, dl
+    del feats64, norms64, f64, n64, q2d, fx64
+    torch.cuda.empty_cache()
+    n256 = F256_ROWS
+    rng = np.random.default_rng(256)
+    feats256 = rng.random((n256, 256), dtype=np.float32)
+    r256 = rng.integers(0, n256, b)
+    cr = CertifiedRetriever(feats256, None, None, DEV)
+    q256 = torch.from_numpy(feats256[r256]).to(DEV)
+    e256 = torch.from_numpy(r256).to(DEV)
+    scan_v3.launches = 0
+    s, i = cr(q256, 10, e256)
+    torch.cuda.synchronize()
+    got = scan_v3.launches
+    fx = similarity.exact_topk_chunked(q256, cr.layout.feats32[:n256],
+                                       cr.layout.norms1d[:n256],
+                                       exclude_rows=e256, k=10,
+                                       fixed_order=True)
+    check(got > 0 and torch.equal(i, fx[1]) and torch.equal(s, fx[0]),
+          "F=256: certified batch not the fixed-order oracle's")
+    q2w = query_prologue(q256, similarity.row_norms(q256))
+    kernels["scan_v3_f256"] = scan_entry(q2w, cr.layout.ft, 128, 2, 32, n256,
+                                         got, reps=5)
+    line.append(f"F=256 ({n256} rows) W=128: certified batch bitwise the "
+                f"oracle (fallbacks {cr.fallbacks}), kernel 1 "
+                f"{kernels['scan_v3_f256']['ms']:.3f} ms")
+    del cr, feats256, q256, q2w
+    torch.cuda.empty_cache()
+    for nm in kernels:
+        if "launches" in kernels[nm] and nm not in launches:
+            launches[nm] = kernels[nm].pop("launches")
+    print(f"phase 10b the bin scans past the flat instances (N={n}, "
+          f"B={b}, k=10 unless stated): " + "; ".join(line)
+          + f"; every kernel-1/4 shape bitwise its plain version; "
+          f"{time.perf_counter() - t10b:.1f} s")
 
 
 def http_json(url: str, body=None) -> dict:
@@ -1804,6 +2232,7 @@ def ingest_phase(work: Path, gxx_s: float) -> None:
 # ---------------------------------------------------------------- phase 20
 
 SHARD_N = 10_000_000        # BASELINE config 4's catalog
+SHARD_N_W2048 = 2_500_000   # the rows of its W = 2048 shards
 SHARDS = 4                  # catalog shards on the one card
 
 
@@ -1977,6 +2406,38 @@ def sharded_phase(kernels: dict, launches: dict, work: Path) -> None:
     del sc22
     torch.cuda.empty_cache()
 
+    # the certified tier at W = 2048 on 4 shards of the catalog's first
+    # SHARD_N_W2048 rows (a quarter of the rows, to stay in time): kernel
+    # 1's wide route on each shard, bitwise the fixed-order oracle
+    n2k = SHARD_N_W2048
+    sc2k = ShardedCatalog(feats[:n2k], norms[:n2k], mesh4, use_certified=True,
+                          config=RetrievalConfig(scan_bins=2048))
+    check(sc2k.w == 2048, f"phase 20: scan_bins=2048 shards have W {sc2k.w}")
+    q2k = queries
+    e2k = torch.where(excl < n2k, excl, -1)
+    scan_v3.launches = 0
+    s2k, i2k = sc2k.retrieve(q2k, k, e2k)
+    torch.cuda.synchronize()
+    n_2k = scan_v3.launches
+    f2k = torch.from_numpy(feats[:n2k]).to(DEV)
+    fx2k = similarity.exact_topk_chunked(
+        q2k, f2k, torch.from_numpy(norms[:n2k]).to(DEV), exclude_rows=e2k,
+        k=k, fixed_order=True)
+    check(n_2k >= SHARDS and torch.equal(i2k, fx2k[1])
+          and torch.equal(s2k, fx2k[0]),
+          f"phase 20: W=2048 shards differ from the fixed-order oracle "
+          f"({n_2k} kernel-1 launches)")
+    t_2k = wall_ms(lambda: sc2k.retrieve(q2k, k, e2k), 5)
+    fb2k, esc2k = sc2k.fallbacks, sc2k.escalations
+    sh0 = sc2k._shards[(0, str(DEV))]
+    kernels["scan_v3_sharded_w2048"] = scan_entry(
+        query_prologue(q2k, qn), sh0.layout.ft, 2048, sh0.layout.depth, 32,
+        sh0.num_items, n_2k, reps=5, chunked=True)
+    launches["scan_v3_sharded_w2048"] = kernels["scan_v3_sharded_w2048"].pop(
+        "launches")
+    del sc2k, sh0, f2k, fx2k
+    torch.cuda.empty_cache()
+
     # the sharded artifact at 10M, from_artifact, and the CLI on it
     art_dir = work / "sharded_10m"
     t0 = time.perf_counter()
@@ -2051,7 +2512,11 @@ def sharded_phase(kernels: dict, launches: dict, work: Path) -> None:
           f" launches) max score diff {p_err:.3g}, {p_ties} near-tie positions "
           f"differ, batch {t_pal:.3f} ms, B=1 {t_pal1:.3f} ms; 2-D data=2 x "
           f"catalog=2 bitwise, {n_pro22} prologues (one per data slice), "
-          f"batch {t_22:.3f} ms, fallbacks {fb22}; "
+          f"batch {t_22:.3f} ms, fallbacks {fb22}; W=2048 on 4 shards of "
+          f"{n2k} rows (kernel 1's wide route) bitwise the fixed-order "
+          f"oracle, {n_2k} kernel-1 launches, "
+          f"fallbacks {fb2k} escalations {esc2k}, batch {t_2k:.3f} ms, kernel "
+          f"1 at a shard {kernels['scan_v3_sharded_w2048']['ms']:.3f} ms; "
           f"save_sharded_catalog {t_save:.1f} s, load + from_artifact "
           f"{t_art:.1f} s, bitwise, {SHARDS} splits of a shard's rows "
           f"{split_shape} {kernels['split_bf16x2']['ms']:.4f} ms each; retrieve --catalog <sharded dir> --mesh "
@@ -2542,7 +3007,7 @@ def main() -> None:
         gxx_job = pool.submit(build_parser)
         built = {name: job.result() for name, job in jobs.items()}
         gxx_s = gxx_job.result()
-    line, fused_regs, abl_regs, large_regs = [], [], [], []
+    line, fused_regs, abl_regs, large_regs, scan_regs = [], [], [], [], []
     for lib in _build.LIBRARIES:
         path, secs = built[lib.name]
         reports = ptxas_reports((path.parent / _build.LOG_NAME).read_text())
@@ -2558,6 +3023,11 @@ def main() -> None:
                        if nm.startswith("fused_large")]
         abl_regs += [(nm, r, sp) for nm, r, sp in reports
                      if nm.startswith("ablation_kernel")]
+        if lib is _build.SERVING:
+            scan_regs = [(nm, r, sp) for nm, r, sp in reports
+                         if nm in BIN_SCAN_REGS or nm.startswith(
+                             ("scan_kernel", "merge_kernel", "wide_",
+                              "select_kernel"))]
     # kernel 3: each instance's registers within 2 of its measured count
     # and its spill stores at most the measured bytes (none but the exact
     # large-k instance's 8)
@@ -2568,6 +3038,13 @@ def main() -> None:
                       for nm, r, sp in regs),
               f"kernel 3's instances (registers, spill bytes): {regs}, "
               f"expected {want}")
+    # kernels 1 and 4: the flat instances keep their registers (within 2),
+    # the wide route's are as measured, none spills
+    check({nm for nm, *_ in scan_regs} == set(BIN_SCAN_REGS)
+          and all(abs(r - BIN_SCAN_REGS[nm][0]) <= 2 and sp == 0
+                  for nm, r, sp in scan_regs),
+          f"kernels 1 and 4's instances (registers, spill bytes): "
+          f"{scan_regs}, expected {BIN_SCAN_REGS}")
     mxu_sass = sass_counts(built[_build.EXPERIMENTS.name][0], "mxu_wgmma_kernel")
     check(len(mxu_sass) == 4 and all(h > 0 and t > 0
                                      for h, t in mxu_sass.values()),
@@ -2590,6 +3067,12 @@ def main() -> None:
           f"{gxx_s:.1f} s"
           + "; kernel 3 (fused_partial_kernel<KPL,EXACT>) registers: "
           + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill"
+          + f"; kernels 1 and 4: {len(scan_regs)} instances, "
+          + f"{sum(nm.startswith(('scan_kernel', 'merge_kernel')) for nm, *_ in scan_regs)}"
+          + " flat ones within 2 registers of their measured counts, the wide route's "
+          + ", ".join(f"{nm} {r}" for nm, r, _ in scan_regs
+                      if not nm.startswith(("scan_kernel", "merge_kernel")))
+          + ", no spill"
           + "; its large-k path registers (spill-store bytes): "
           + ", ".join(f"{nm} {r} ({sp})" for nm, r, sp in large_regs)
           + "; kernel 10 (mxu_wgmma_kernel<k steps>) SASS HGMMA / UTMALDG: "
@@ -3195,6 +3678,11 @@ def main() -> None:
           f"{kernels['scan_v3_w512']['plain_ms']:.3f} ms (bitwise {bitw2}), "
           f"depth 3 on 32 queries bitwise {bitw3}")
     del r512, ft512
+
+    # ---- 10b. kernels 1 and 4 past their flat instances
+    torch.cuda.empty_cache()
+    shapes_phase(cat, feats, norms, queries, excl, fixed, (rs, ri), kernels,
+                 launches)
 
     # ---- 11. kernel 3 over bf16 and bf16x2 storage, and the prefilter
     line = []

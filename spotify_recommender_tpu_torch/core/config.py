@@ -93,7 +93,7 @@ class RetrievalConfig:
     # escalation rescan of the queries whose certificate fails.
     scan_depth: int = 2
     # v3 bin count W (0 = auto: 128), a multiple of 128; halved until it
-    # divides the catalog tile.  The CUDA scans take W <= 1024.
+    # divides the catalog tile.  The CUDA scans take any such W and depth.
     scan_bins: int = 0
     # Depth-escalation rescan (0 = disabled): certificate-failing queries
     # are re-scanned at THIS deeper bin depth before any oracle fallback.

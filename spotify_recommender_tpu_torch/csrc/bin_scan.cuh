@@ -90,6 +90,13 @@
 //
 // The prototypes' single walk (scan_d1, proto_scan) is the scan kernel over
 // one slice writing straight to the outputs, without the merge.
+//
+// These "flat" instances take W <= 1024, depth <= 4, rows whose two tiles
+// of one W-column group fit the shared memory, and extract by argmax
+// rounds.  Kernels 1 and 4 take every other shape on csrc/scan_wide.cu's
+// "wide" route (bin groups of 128, a runtime depth, row chunks, a radix
+// selection), which reuses SplitPlanes and bin_insert from here, so both
+// routes give the same bits (ops/cuda/scan_v3.scan_route picks).
 // Tensor cores (wgmma) are later work: BF16X2_EPS assumes that each fp32
 // addition rounds to nearest, and wgmma's accumulation does not.  Measured
 // on an H100 with kernel 10 (csrc/mxu_wgmma.cu; PERF.md section 6):
@@ -115,7 +122,9 @@
 
 namespace bin_scan {
 
-constexpr int kMaxBins = 1024;       // W: one bin per thread
+constexpr int kMaxBins = 1024;       // W: one bin per thread (the flat
+                                     // instances; csrc/scan_wide.cu takes
+                                     // any W)
 constexpr int kTileBytes = 24576;    // shared memory of one catalog tile
 constexpr int kMaxSlices = 65535;    // gridDim.y
 constexpr int kMergeThreads = 1024;  // threads of a merge block
@@ -726,7 +735,8 @@ int dispatch_w(const Args& a, int w, cudaStream_t s) {
     case 5: return launch<640, D, E, C>(a, s);
     case 6: return launch<768, D, E, C>(a, s);
     case 7: return launch<896, D, E, C>(a, s);
-    default: return launch<1024, D, E, C>(a, s);
+    case 8: return launch<1024, D, E, C>(a, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

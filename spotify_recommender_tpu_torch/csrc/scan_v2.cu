@@ -13,8 +13,10 @@
 //
 // at depth 3, so the certificate needs no guard clause and the rerank no
 // masks.  Bins: any W that is a multiple of 128 up to 1024 (the TPU default
-// is 512).  topc = 0 writes the full (B, 3W) / (B, 3W) / (B, W) structures.
-// Like kernel 1, it runs as the catalog-split scan and the merge.
+// is 512) on these flat instances; wider W, rows too wide for their tile
+// and a large top-C run csrc/scan_wide.cu's wide route.  topc = 0 writes
+// the full (B, 3W) / (B, 3W) / (B, W) structures.  Like kernel 1, it runs
+// as the catalog-split scan and the merge.
 
 #include "bin_scan.cuh"
 

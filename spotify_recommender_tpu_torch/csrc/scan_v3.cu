@@ -5,9 +5,11 @@
 // (spotify_recommender_tpu/ops/pallas/fused_topk.py:1069, :1230).  The scan
 // itself, what bounds it and its design are in bin_scan.cuh; v3 scores are
 // the raw split-plane dots of unit vectors (no epilogue, no masks: the
-// rerank drops the excluded row), at depth 1-4 and any W that is a
-// multiple of 128 up to 1024: the catalog-split scan, then the merge with
-// the top-C extraction.  Columns >= ncols (the layout's pad columns past
+// rerank drops the excluded row), on the flat instances: depth 1-4, any W
+// that is a multiple of 128 up to 1024, rows that fit the tile, a top-C
+// the argmax rounds extract: the catalog-split scan, then the merge with
+// the top-C extraction.  Every other shape runs csrc/scan_wide.cu's wide
+// route (ops/cuda/scan_v3.scan_route picks).  Columns >= ncols (the layout's pad columns past
 // the catalog's rows) never enter a bin, so a query whose real scores are
 // all below 0 still fills its bins with real columns.
 

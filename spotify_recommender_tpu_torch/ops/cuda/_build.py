@@ -3,9 +3,10 @@
 The sources under `spotify_recommender_tpu_torch/csrc/` go into two shared
 libraries with a plain C interface, each built at its own first use:
 
-    SERVING      split_bf16x2.cu, scan_v3.cu, scan_v2.cu, fused_topk.cu:
-                 the kernels of the user paths (ops/cuda/split: the query
-                 prologue and the split; scan_v3, scan_v2, fused),
+    SERVING      split_bf16x2.cu, scan_v3.cu, scan_v2.cu, scan_wide.cu,
+                 fused_topk.cu: the kernels of the user paths
+                 (ops/cuda/split: the query prologue and the split;
+                 scan_v3, scan_v2 on their flat and wide routes, fused),
                  libsrt_serving.so
     EXPERIMENTS  mxu_wgmma.cu, proto_scans.cu, ablation_r2.cu: the probes
                  of `experiments/` (ops/cuda/proto_scans, ablation),
@@ -73,7 +74,8 @@ class Library:
 
 
 SERVING = Library("serving", (
-    "errors.cu", "split_bf16x2.cu", "scan_v3.cu", "scan_v2.cu", "fused_topk.cu",
+    "errors.cu", "split_bf16x2.cu", "scan_v3.cu", "scan_v2.cu", "scan_wide.cu",
+    "fused_topk.cu",
 ), {
     # q, qn, ft, ft_sd, ft_sc, cn, excl, b, fq, fc, np, valid, k, exact,
     # bf16, eps, nsplit, split_cols, pv, pc, ov, oi, stream
@@ -101,6 +103,13 @@ SERVING = Library("serving", (
     # wv, wi, wb, ov, oi, ob, stream
     "srt_scan_v2": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _P, _I64, _F32,
                     _I32, _I32, _I64, _P, _P, _P, _P, _P, _P, _P),
+    # q2, qn, b, f, ft, ft_stride, cn, np, ncols, excl, valid, eps, epi, w,
+    # depth, slice, wv, wi, wb, ov, oi, ob, stream
+    "srt_scan_wide": (_P, _P, _I64, _I32, _P, _I64, _P, _I64, _I64, _P, _I64,
+                      _F32, _I32, _I32, _I32, _I64, _P, _P, _P, _P, _P, _P,
+                      _P),
+    # sv, si, sb, b, w, depth, topc, ov, oi, ob, stream
+    "srt_bin_select": (_P, _P, _P, _I64, _I32, _I32, _I32, _P, _P, _P, _P),
 })
 
 EXPERIMENTS = Library("experiments", (

@@ -27,8 +27,9 @@ columns >= valid and on the excluded column (`proto_scan`).  Bin of column
 c: c mod w; each bin keeps its top-D (value, column) with strict `>` (the
 lowest column wins ties) and its (D+1)-th best value.
 
-On CUDA tensors each wrapper launches its kernel (w a multiple of 128 up to
-KERNEL_MAX_BINS) and counts the launch in `<wrapper>.launches`; on CPU
+On CUDA tensors each wrapper launches its kernel (w a multiple of 128 up
+to FLAT_MAX_BINS: the flat instances of csrc/bin_scan.cuh) and counts the
+launch in `<wrapper>.launches`; on CPU
 tensors it runs the plain version, which sums the same exact bf16 products
 in the bin scans' order (ascending rows, one fp32 rounding each), so on the
 card those agree bitwise.  `mxu_only`'s kernel sums on the tensor cores
@@ -51,6 +52,7 @@ import torch
 
 from spotify_recommender_tpu_torch.ops.cuda import _build
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
+    FLAT_MAX_BINS,
     H100_SMS,
     bin_structures,
     check_kernel_layout,
@@ -122,6 +124,9 @@ def _check_kernel(q: torch.Tensor, ft: torch.Tensor, w: int, what: str,
     """What the kernels need beyond the plain versions (scan_v3's layout
     rules), and the norms and exclusions on the same device, contiguous."""
     check_kernel_layout(q, ft, w, what)
+    if w > FLAT_MAX_BINS:
+        raise ValueError(f"{what}: W={w}: the prototype scans run the flat "
+                         f"instances, W up to {FLAT_MAX_BINS}")
     if any(t.device != q.device or not t.is_contiguous() for t in others):
         raise ValueError(f"{what}: norms and exclusions must be contiguous "
                          f"on {q.device}, got {[t.device for t in others]}")

@@ -25,10 +25,13 @@ ties; a -inf score never enters) and its 4th-best value.  Output:
 
 This is what the TPU kernel `_scan_kernel` (spotify_recommender_tpu/ops/
 pallas/fused_topk.py:834) computes.  On a CUDA tensor `scan_v2` launches
-the hand-written kernels (`csrc/scan_v2.cu` over `csrc/bin_scan.cuh`, w a
-multiple of 128 up to KERNEL_MAX_BINS): kernel 1's catalog-split scan and
-merge (ops/cuda/scan_v3.py) with the epilogue inside the scan.  On a CPU
-tensor it runs `scan_v2_plain`, which sums the same 4F products in the
+hand-written kernels on kernel 1's two routes (ops/cuda/scan_v3.py
+`scan_route`), with the epilogue inside the scan: "flat" (`csrc/scan_v2.cu`
+over `csrc/bin_scan.cuh`: w up to 1024, rows that fit its tile, the
+merge's argmax rounds) or "wide" (`csrc/scan_wide.cu`: any w, row chunks
+for any F, the full structures or `srt_bin_select`'s exact top-topc), each
+kernel 1's catalog-split scan and merge, any w a multiple of 128.  On a
+CPU tensor it runs `scan_v2_plain`, which sums the same 4F products in the
 kernel's order: on the card the two agree bitwise.
 """
 
@@ -44,6 +47,8 @@ from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
     bin_structures,
     check_kernel_layout,
     check_scan_inputs,
+    row_ptrs,
+    scan_plan,
     scan_scratch,
     split_plane_dots,
     top_slots,
@@ -114,22 +119,42 @@ def scan_v2(
             and excl.is_contiguous()):
         raise ValueError("scan_v2: qn, norms and excl must be contiguous")
     width = topc if topc else DEPTH * w
-    slice_, wv, wi, wb = scan_scratch(b, np_, w, DEPTH, q2.device)
     ov = torch.empty((b, width), dtype=torch.float32, device=q2.device)
     oi = torch.empty((b, width), dtype=torch.int32, device=q2.device)
     ob = torch.empty((b, 1 if topc else w), dtype=torch.float32,
                      device=q2.device)
+    route, chunks = scan_plan(b, np_, f, w, DEPTH, topc, q2.device)
+    lib = _build.library()
     with torch.cuda.device(q2.device):
-        err = _build.library().srt_scan_v2(
-            q2.data_ptr(), qn.data_ptr(), b, f, ft.data_ptr(), ft.stride(0),
-            norms.data_ptr(), np_, excl.data_ptr(), int(valid),
-            ctypes.c_float(eps), w, topc, slice_, wv.data_ptr(),
-            wi.data_ptr(), wb.data_ptr(), ov.data_ptr(), oi.data_ptr(),
-            ob.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, f"scan_v2 (w={w}, F={f}, slice={slice_})")
-    scan_v2.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for c0, m, slice_, slices in chunks:
+            ptrs = row_ptrs(c0, q2, qn, excl, ov, oi, ob)
+            wv, wi, wb = scan_scratch(slices, m, w, DEPTH, q2.device)
+            if route == "flat":
+                err = lib.srt_scan_v2(
+                    ptrs[0], ptrs[1], m, f, ft.data_ptr(), ft.stride(0),
+                    norms.data_ptr(), np_, ptrs[2], int(valid),
+                    ctypes.c_float(eps), w, topc, slice_, wv.data_ptr(),
+                    wi.data_ptr(), wb.data_ptr(), *ptrs[3:], stream)
+            else:
+                # the merged full structures: the outputs (topc = 0) or the
+                # scratch's slice 0, then the exact top-topc
+                full = (ptrs[3:] if topc == 0 else
+                        [wv.data_ptr(), wi.data_ptr(), wb.data_ptr()])
+                err = lib.srt_scan_wide(
+                    ptrs[0], ptrs[1], m, f, ft.data_ptr(), ft.stride(0),
+                    norms.data_ptr(), np_, np_, ptrs[2], int(valid),
+                    ctypes.c_float(eps), 1, w, DEPTH, slice_, wv.data_ptr(),
+                    wi.data_ptr(), wb.data_ptr(), *full, stream)
+                if topc and not err:
+                    err = lib.srt_bin_select(
+                        wv.data_ptr(), wi.data_ptr(), wb.data_ptr(), m, w,
+                        DEPTH, topc, *ptrs[3:], stream)
+            if err:
+                _build.check(err, f"scan_v2 {route} (w={w}, F={f}, "
+                                  f"topc={topc}, slice={slice_})")
+            scan_v2.launches += 1
     return ov, oi, ob
 
 
-scan_v2.launches = 0   # kernel launches (CUDA tensors only)
+scan_v2.launches = 0   # launches, one per batch chunk (CUDA tensors only)

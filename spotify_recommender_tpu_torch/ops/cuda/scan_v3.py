@@ -21,24 +21,40 @@ value descending, slot ascending, with empty slots as (-inf, -1).  This is
 what the TPU kernel `_scan_kernel_v3`
 (spotify_recommender_tpu/ops/pallas/fused_topk.py:1069) computes.
 
-On a CUDA tensor `scan_v3` launches the hand-written kernels
-(`csrc/scan_v3.cu` over `csrc/bin_scan.cuh`: w a multiple of 128 up to
-KERNEL_MAX_BINS, depth 1-4): a scan whose blocks cover (query tiles x
+On a CUDA tensor `scan_v3` launches hand-written kernels, on one of two
+routes (`scan_route`), each a scan whose blocks cover (query tiles x
 catalog slices of whole w-column groups), each writing its slice's full
-bin structures to scratch, then a merge that folds the slices per bin and
-extracts the top-`topc`.  `scan_slice` picks the slice so that the grid
-covers the card's block slots a few times over at any B, with the scratch
-under SCRATCH_CAP.  On a CPU tensor it runs `scan_v3_plain`, which sums
-the same 4F products in the kernel's order: on the card the two agree
-bitwise, whatever the split, because the merge only compares values
+bin structures to scratch, then a merge that folds the slices per bin:
+
+    flat  csrc/scan_v3.cu over csrc/bin_scan.cuh: w up to FLAT_MAX_BINS
+          (a bin per thread), depth up to FLAT_MAX_DEPTH (register
+          lists), rows that fit its tile (`flat_fits`), topc up to
+          ROUNDS_MAX_TOPC: the merge extracts the top-`topc` by argmax
+          rounds;
+    wide  csrc/scan_wide.cu: any w (blocks of WIDE_BINS bins, a third grid
+          dimension over the bin groups), any depth (register lists to
+          WIDE_MAX_REG_DEPTH, then a runtime-depth instance whose lists
+          live in the scratch), any F (row chunks, `wide_stage`), then
+          `srt_bin_select`, an exact radix selection of the top-topc.
+
+`scan_slice` picks the slice so that the grid covers the card's block
+slots a few times over at any B, with the scratch under SCRATCH_CAP; a
+batch whose one slice would pass SCRATCH_CEILING runs in chunks of
+`batch_chunk` queries, one launch each; `scan_plan` keeps a shape's
+route, chunks and slices, so a repeated call does only the launches' host
+work.  On a CPU tensor it runs
+`scan_v3_plain`, which sums the same 4F products in the kernel's order:
+on the card the two agree bitwise, whatever the route, split, bin groups
+or row chunks, because the merge only compares values
 (`split_bin_structures` repeats it in torch).  Both read only the [hi; lo]
 rows of `ft` and the [qh, ql] columns of `q2`.  The helpers below are
 shared with kernel 4 (ops/cuda/scan_v2.py) and the prototype scans
-(ops/cuda/proto_scans.py).
+(ops/cuda/proto_scans.py), which run the flat instances only.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -46,8 +62,16 @@ import torch
 from spotify_recommender_tpu_torch.ops.cuda import _build
 from spotify_recommender_tpu_torch.ops.topk import topk_stable
 
-KERNEL_MAX_BINS = 1024    # one bin per thread of a block
-KERNEL_MAX_DEPTH = 4
+FLAT_MAX_BINS = 1024      # the flat instances: one bin per thread of a block
+FLAT_MAX_DEPTH = 4        # their register lists
+WIDE_BINS = 128           # bins of a wide-route scan block
+WIDE_MAX_REG_DEPTH = 8    # its deepest register lists
+# the flat merge's argmax rounds extract a top-C up to this; a larger C
+# goes the wide route, whose radix selection does not grow with C
+ROUNDS_MAX_TOPC = 128
+# dynamic shared memory a flat scan block may take (bin_scan.cuh kMaxSmem)
+SMEM_LIMIT = 232448 - 1024
+TILE_BYTES = 24576        # bin_scan.cuh kTileBytes
 H100_SMS = 132            # the schedule the plain split follows on the CPU
 MAX_SLICES = 65535        # the scan kernel's gridDim.y
 # the split scan's grid: blocks per SM it aims for (two to three waves of
@@ -57,6 +81,8 @@ MAX_SLICES = 65535        # the scan kernel's gridDim.y
 SCAN_BLOCKS_PER_SM = 8
 MIN_SLICE_GROUPS = 16
 SCRATCH_CAP = 64 << 20    # bytes
+# a batch whose one slice of scratch would pass this runs in chunks
+SCRATCH_CEILING = 512 << 20
 
 
 def queries_per_block(w: int) -> int:
@@ -86,35 +112,118 @@ def device_sms(device: torch.device) -> int:
     return H100_SMS
 
 
+def flat_fits(f: int, w: int) -> bool:
+    """Whether a flat scan block's query tile and two tiles of one w-column
+    group of the 2F rows fit its shared memory (bin_scan.cuh `launch`)."""
+    rows = 2 * f
+    return 4 * rows * queries_per_block(w) + 4 * rows * w <= SMEM_LIMIT
+
+
+def scan_route(f: int, w: int, depth: int, topc: int) -> str:
+    """"flat" where the flat instances take (F, w, depth) and the merge's
+    rounds the top-`topc` (0: the full structures), else "wide"."""
+    flat = (w <= FLAT_MAX_BINS and depth <= FLAT_MAX_DEPTH and flat_fits(f, w)
+            and topc <= ROUNDS_MAX_TOPC)
+    return "flat" if flat else "wide"
+
+
+def wide_tiling(depth: int) -> Tuple[int, int]:
+    """(queries a block, columns a thread scores a step) of a wide scan
+    block (csrc/scan_wide.cu `wide_queries`, `wide_cols`): register lists
+    to depth WIDE_MAX_REG_DEPTH (8 queries past depth 4), then the
+    runtime-depth instance."""
+    if depth > WIDE_MAX_REG_DEPTH:
+        return 16, 4
+    if depth > FLAT_MAX_DEPTH:
+        return 8, 2
+    return 16, 4 if depth <= 2 else (2 if depth == 3 else 1)
+
+
+def wide_stage(f: int, depth: int) -> Tuple[int, int]:
+    """(features per row chunk, dynamic shared memory in bytes) of a wide
+    scan block (csrc/scan_wide.cu `chunk_features`, `run_wide`): a stage
+    of U groups of WIDE_BINS columns near TILE_BYTES, and TQ query rows."""
+    tq, u = wide_tiling(depth)
+    most = TILE_BYTES // (2 * u * WIDE_BINS * 2)
+    n = -(-f // most)
+    fc = -(-f // n)
+    return fc, 2 * (4 * 2 * fc * tq + 2 * 2 * fc * u * WIDE_BINS)
+
+
+def slice_bytes(b: int, w: int, depth: int) -> int:
+    """Bytes of one catalog slice's scratch for `b` queries."""
+    return 4 * b * (2 * depth * w + w)
+
+
+def batch_chunk(b: int, w: int, depth: int) -> int:
+    """Queries per launch: all of `b`, or as many as keep one slice's
+    scratch under SCRATCH_CEILING (a multiple of 16, the query tile,
+    where more than 16 fit)."""
+    fit = max(1, SCRATCH_CEILING // slice_bytes(1, w, depth))
+    if fit >= b:
+        return b
+    return fit - fit % 16 if fit > 16 else fit
+
+
 def scan_slice(b: int, np_: int, w: int, depth: int,
-               device: torch.device) -> int:
+               device: torch.device, route: str = "flat") -> int:
     """Columns per catalog slice of the split scan on `device` (kernels 1
-    and 4): `split_slice` at SCAN_BLOCKS_PER_SM, the scratch under
-    SCRATCH_CAP, at least MIN_SLICE_GROUPS groups of w columns."""
-    slice_ = split_slice(b, np_, w, queries_per_block(w), device_sms(device),
-                         SCAN_BLOCKS_PER_SM, 4 * b * (2 * depth * w + w))
+    and 4): `split_slice` at SCAN_BLOCKS_PER_SM over the route's (query
+    tiles x bin groups) blocks a slice, the scratch under SCRATCH_CAP, at
+    least MIN_SLICE_GROUPS groups of w columns."""
+    if route == "flat":
+        tiles = max(1, -(-b // queries_per_block(w)))
+    else:
+        tiles = max(1, -(-b // wide_tiling(depth)[0])) * (w // WIDE_BINS)
+    slice_ = split_slice(tiles, np_, w, 1, device_sms(device),
+                         SCAN_BLOCKS_PER_SM, slice_bytes(b, w, depth))
     return max(slice_, MIN_SLICE_GROUPS * w)
 
 
-def scan_scratch(b: int, np_: int, w: int, depth: int, device: torch.device):
-    """The split scan's slice (columns) and its per-slice structures
-    (slices, B, depth*w) f32 values, int32 columns and (slices, B, w) f32
-    bounds, as `torch.empty` on `device`."""
-    slice_ = scan_slice(b, np_, w, depth, device)
-    slices = max(1, -(-np_ // slice_))
-    wv = torch.empty((slices, b, depth * w), dtype=torch.float32, device=device)
-    wi = torch.empty((slices, b, depth * w), dtype=torch.int32, device=device)
-    wb = torch.empty((slices, b, w), dtype=torch.float32, device=device)
-    return slice_, wv, wi, wb
+@functools.lru_cache(maxsize=1024)
+def scan_plan(b: int, np_: int, f: int, w: int, depth: int, topc: int,
+              device: torch.device) -> Tuple[str, Tuple[Tuple[int, ...], ...]]:
+    """The launches of one `scan_v3` / `scan_v2` call: its route and, per
+    batch chunk (`batch_chunk`), (first query, queries, slice columns,
+    slices).  Cached: a serving path calls with few shapes, and the plan is
+    host work before every launch."""
+    route = scan_route(f, w, depth, topc)
+    chunk = batch_chunk(b, w, depth)
+    chunks = []
+    for c0 in range(0, b, chunk):
+        m = min(chunk, b - c0)
+        slice_ = scan_slice(m, np_, w, depth, device, route)
+        chunks.append((c0, m, slice_, -(-np_ // slice_)))
+    return route, tuple(chunks)
+
+
+def scan_scratch(slices: int, b: int, w: int, depth: int,
+                 device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """The split scan's per-slice structures: (slices, B, depth*w) f32
+    values, int32 columns and (slices, B, w) f32 bounds, as `torch.empty`
+    on `device`."""
+    return (
+        torch.empty((slices, b, depth * w), dtype=torch.float32, device=device),
+        torch.empty((slices, b, depth * w), dtype=torch.int32, device=device),
+        torch.empty((slices, b, w), dtype=torch.float32, device=device),
+    )
+
+
+def row_ptrs(row: int, *tensors: torch.Tensor) -> list:
+    """The address of row `row` of each contiguous tensor (a batch chunk's
+    first row), without making a view."""
+    if not row:
+        return [t.data_ptr() for t in tensors]
+    return [t.data_ptr() + row * t.stride(0) * t.element_size()
+            for t in tensors]
 
 
 def check_kernel_bins(w: int) -> None:
-    """Raise unless the CUDA bin scans take `w` bins."""
-    if w % 128 or not 128 <= w <= KERNEL_MAX_BINS:
+    """Raise unless the CUDA bin scans take `w` bins: a multiple of 128, as
+    the JAX layout's W is."""
+    if w % 128 or w < 128:
         raise ValueError(
-            f"scan_bins W={w}: the CUDA bin scans take W a multiple of 128 "
-            f"up to {KERNEL_MAX_BINS} (one bin per thread of a block)"
-        )
+            f"scan_bins W={w}: the CUDA bin scans take W a multiple of 128")
 
 
 def split_plane_dots(q2: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
@@ -185,16 +294,38 @@ def merge_bins(parts, depth: int) -> Tuple[torch.Tensor, ...]:
 
 
 def split_bin_structures(
-    scores: torch.Tensor, w: int, depth: int, slice_: int
+    scores: torch.Tensor, w: int, depth: int, slice_: int, groups: int = 1,
+    chunk: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`bin_structures` as the kernels build them: per slice of `slice_`
-    columns (a multiple of w), then `merge_bins`; bitwise equal to
-    `bin_structures(scores, w, depth)`."""
-    parts = []
-    for c0 in range(0, scores.shape[1], slice_):
-        sv, si, bnd = bin_structures(scores[:, c0:c0 + slice_], w, depth)
-        parts.append((sv, torch.where(si >= 0, si + c0, si), bnd))
-    return merge_bins(parts, depth)
+    """`bin_structures` as the kernels build them: per batch chunk of
+    `chunk` queries (`batch_chunk`), per bin group of w // groups bins (a
+    wide-route block's bins: the columns of each w-column group whose bin
+    lies in the group), per slice of `slice_` columns (a multiple of w),
+    then `merge_bins`; bitwise equal to `bin_structures(scores, w,
+    depth)`."""
+    b, np_ = scores.shape
+    wb = w // groups
+    out = []
+    for q0 in range(0, b, chunk or b):
+        sc = scores[q0:q0 + (chunk or b)]
+        m = sc.shape[0]
+        merged = []
+        for g in range(groups):
+            cols = sc.reshape(m, np_ // w, w)[:, :, g * wb:(g + 1) * wb]
+            parts = []
+            for c0 in range(0, np_, slice_):
+                part = cols[:, c0 // w:(c0 + slice_) // w].reshape(m, -1)
+                sv, si, bnd = bin_structures(part, wb, depth)
+                # part column p is catalog column (c0/w + p/wb)*w + g*wb + p%wb
+                si = torch.where(
+                    si >= 0, (c0 // w + si // wb) * w + g * wb + si % wb, si)
+                parts.append((sv, si, bnd))
+            merged.append(merge_bins(parts, depth))
+        # slot level*w + g*wb + t
+        out.append(tuple(
+            torch.cat([x[i].view(m, -1, wb) for x in merged], 2).reshape(m, -1)
+            for i in range(2)) + (torch.cat([x[2] for x in merged], 1),))
+    return tuple(torch.cat([o[i] for o in out]) for i in range(3))
 
 
 def top_slots(
@@ -259,24 +390,39 @@ def scan_v3(
     if q2.device.type == "cpu" and ft.device.type == "cpu":
         return scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc, ncols=ncols)
     check_kernel_layout(q2, ft, w, "scan_v3")
-    if not 1 <= depth <= KERNEL_MAX_DEPTH:
-        raise ValueError(
-            f"the CUDA scan supports depth 1-{KERNEL_MAX_DEPTH}, got {depth}")
+    if depth < 1:
+        raise ValueError(f"scan_v3: depth {depth} < 1")
     b = q2.shape[0]
-    slice_, wv, wi, wb = scan_scratch(b, np_, w, depth, q2.device)
     ov = torch.empty((b, topc), dtype=torch.float32, device=q2.device)
     oi = torch.empty((b, topc), dtype=torch.int32, device=q2.device)
     ob = torch.empty((b, 1), dtype=torch.float32, device=q2.device)
+    route, chunks = scan_plan(b, np_, f, w, depth, topc, q2.device)
+    lib = _build.library()
     with torch.cuda.device(q2.device):
-        err = _build.library().srt_scan_v3(
-            q2.data_ptr(), b, f, ft.data_ptr(), ft.stride(0), np_, ncols, w,
-            depth, topc, slice_, wv.data_ptr(), wi.data_ptr(), wb.data_ptr(),
-            ov.data_ptr(), oi.data_ptr(), ob.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, f"scan_v3 (w={w}, depth={depth}, F={f}, slice={slice_})")
-    scan_v3.launches += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        for c0, m, slice_, slices in chunks:
+            qc, o = row_ptrs(c0, q2), row_ptrs(c0, ov, oi, ob)
+            wv, wi, wb = scan_scratch(slices, m, w, depth, q2.device)
+            scratch = (wv.data_ptr(), wi.data_ptr(), wb.data_ptr())
+            if route == "flat":
+                err = lib.srt_scan_v3(
+                    *qc, m, f, ft.data_ptr(), ft.stride(0), np_, ncols, w,
+                    depth, topc, slice_, *scratch, *o, stream)
+            else:
+                # the merged full structures into the scratch's slice 0,
+                # then the exact selection of the top-topc
+                err = lib.srt_scan_wide(
+                    *qc, None, m, f, ft.data_ptr(), ft.stride(0), None, np_,
+                    ncols, None, 0, 0.0, 0, w, depth, slice_, *scratch,
+                    *scratch, stream)
+                if not err:
+                    err = lib.srt_bin_select(*scratch, m, w, depth, topc, *o,
+                                             stream)
+            if err:
+                _build.check(err, f"scan_v3 {route} (w={w}, depth={depth}, "
+                                  f"F={f}, topc={topc}, slice={slice_})")
+            scan_v3.launches += 1
     return ov, oi, ob
 
 
-scan_v3.launches = 0   # kernel launches (CUDA tensors only)
+scan_v3.launches = 0   # launches, one per batch chunk (CUDA tensors only)

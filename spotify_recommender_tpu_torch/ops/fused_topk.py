@@ -52,9 +52,11 @@ TPU or on XLA (also listed in ROADMAP.md section 3):
   `build_certified_layout`), and so is the bf16x2 fused catalog;
 - bf16 dots add their exact products in fp32 in one fixed order, so the
   kernel and its plain version agree bitwise (the MXU has its own order);
-- on CUDA the bin scans take W <= KERNEL_MAX_BINS.  Kernel 3 takes any k,
-  as the JAX kernel does: k <= 128 on its warp lists, above on its large-k
-  path (ops/cuda/fused.py).
+- the bin scans take any W (a multiple of 128), depth and F on CUDA, as
+  the JAX kernels do: W <= 1024 at depth <= 4 on the flat instances where
+  the rows fit their tile, else on the wide route (ops/cuda/scan_v3.py
+  `scan_route`).  Kernel 3 takes any k, as the JAX kernel does: k <= 128
+  on its warp lists, above on its large-k path (ops/cuda/fused.py).
 """
 
 from __future__ import annotations
@@ -73,10 +75,7 @@ from spotify_recommender_tpu_torch.core.logging import get_logger
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.cuda.fused import fused_topk
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import scan_v2
-from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
-    check_kernel_bins,
-    scan_v3,
-)
+from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import scan_v3
 from spotify_recommender_tpu_torch.ops.cuda.split import (
     query_prologue,
     split_bf16x2_plain,
@@ -663,8 +662,6 @@ class CertifiedRetriever:
         return self
 
     def _setup(self, layout, n, f, config, device) -> None:
-        if device.type == "cuda":
-            check_kernel_bins(layout.w)
         similarity.disable_tf32()
         self.config = config
         self.device = device
@@ -874,8 +871,6 @@ class ApproxRetriever:
         config = config or RetrievalConfig()
         feats = np.asarray(features, np.float32)
         layout = build_certified_layout(feats, norms, config)
-        if device.type == "cuda":
-            check_kernel_bins(layout.w)
         self.config = config
         self.device = device
         self.num_items, self.feature_dim = feats.shape

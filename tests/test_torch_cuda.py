@@ -37,6 +37,8 @@ from spotify_recommender_tpu_torch.ops.cuda.fused import (
 )
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import scan_v2, scan_v2_plain
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
+    ROUNDS_MAX_TOPC,
+    scan_route,
     scan_slice,
     scan_v3,
     scan_v3_plain,
@@ -350,6 +352,195 @@ def test_split_scans_bitwise_equal_plain(cuda, b, w):
                               topc=topc)
         for o, p in zip(out, plain):
             assert torch.equal(o, p), (topc, (o != p).sum().item())
+
+
+def _wide_inputs(cuda, np_, f, b, seed, data):
+    """(q2, ft) on the card: "unit" split-plane unit rows and queries near
+    them, or "exact" planes of small multiples of 1/2 and 1/128 (every
+    partial sum exact, so many bins and slots tie)."""
+    rng = np.random.default_rng(seed)
+    if data == "unit":
+        feats = rng.random((np_, f), dtype=np.float32)
+        hi, lo = split_bf16x2_plain(torch.from_numpy(
+            feats / np.linalg.norm(feats, axis=1, keepdims=True)))
+        ft = torch.cat([hi, lo], 1).t().contiguous()
+        q = feats[rng.integers(0, np_, b)] + 0.01 * rng.standard_normal(
+            (b, f)).astype(np.float32)
+        qh, ql = split_bf16x2_plain(torch.from_numpy(
+            q / np.linalg.norm(q, axis=1, keepdims=True)))
+        q2 = torch.cat([qh, ql, ql, qh], 1)
+    else:
+        hi = rng.integers(-2, 3, (f, np_)) / 2.0
+        lo = rng.integers(-2, 3, (f, np_)) / 128.0
+        qh = rng.integers(-2, 3, (b, f)) / 2.0
+        ql = rng.integers(-2, 3, (b, f)) / 128.0
+        ft = torch.from_numpy(np.concatenate([hi, lo]).astype(
+            np.float32)).to(torch.bfloat16)
+        q2 = torch.from_numpy(np.concatenate([qh, ql, ql, qh], 1).astype(
+            np.float32)).to(torch.bfloat16)
+    return q2.to(cuda), ft.to(cuda)
+
+
+# kernel 1's shapes past the flat instances: W > 1024, depth > 4, rows too
+# wide for the flat tile, a W not a power of two; (w, depth, f, b)
+WIDE_SHAPES = [(2048, 2, 12, 37), (4096, 3, 12, 5), (8192, 2, 12, 1),
+               (128, 5, 12, 40), (128, 6, 12, 17), (256, 8, 12, 33),
+               (640, 7, 64, 9), (384, 9, 12, 3), (512, 3, 64, 19),
+               (1024, 2, 64, 16), (128, 2, 256, 9), (1152, 2, 12, 20)]
+
+
+@pytest.mark.parametrize("data", ["unit", "exact"])
+@pytest.mark.parametrize("w,depth,f,b", WIDE_SHAPES)
+def test_scan_v3_wide_route_bitwise_equals_plain(cuda, w, depth, f, b, data):
+    """Kernel 1 on the wide route (bin groups, the runtime depth, row
+    chunks, the merge and `srt_bin_select`) against its plain version:
+    values, columns and bounds bitwise, the straddling group's columns
+    (ncols) included, at topc 32, at all depth*W slots where that is at
+    most 2 x 8192, and at 9000 (two selection chunks) where it is more."""
+    np_ = w * max(11, -(-2048 // w))
+    q2, ft = _wide_inputs(cuda, np_, f, b, w + depth + f, data)
+    ncols = np_ - w // 2 - 3
+    s = depth * w
+    for topc in (32, s if s <= 16384 else 9000):
+        assert scan_route(f, w, depth, topc) == "wide"
+        before = scan_v3.launches
+        out = scan_v3(q2, ft, w=w, depth=depth, topc=topc, ncols=ncols)
+        torch.cuda.synchronize()
+        assert scan_v3.launches == before + 1
+        plain = scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc,
+                              ncols=ncols)
+        for o, p in zip(out, plain):
+            assert torch.equal(o, p), (topc, (o != p).sum().item())
+        assert (out[1] < ncols).all()
+
+
+def test_scan_v3_wide_route_empty_slots_bitwise_equal_plain(cuda):
+    """W = 2048 at depth 6 over W + 100 live columns: most bins hold one
+    column, so the top-(depth*W) (two selection chunks) ends in empty
+    slots (-inf, -1), in slot order, as the plain version's."""
+    w, depth = 2048, 6
+    q2, ft = _wide_inputs(cuda, 4 * w, 12, 7, 66, "unit")
+    out = scan_v3(q2, ft, w=w, depth=depth, topc=depth * w, ncols=w + 100)
+    torch.cuda.synchronize()
+    plain = scan_v3_plain(q2, ft, w=w, depth=depth, topc=depth * w,
+                          ncols=w + 100)
+    for o, p in zip(out, plain):
+        assert torch.equal(o, p)
+    assert (out[1] == -1).sum().item() == 7 * (depth * w - w - 100)
+    assert torch.isinf(out[0][out[1] == -1]).all()
+
+
+@pytest.mark.parametrize("w,depth,topc", [(128, 2, 128), (128, 2, 129),
+                                          (512, 3, 257), (512, 3, 1536),
+                                          (1024, 4, 4096)])
+def test_scan_v3_large_topc_bitwise_equals_plain(cuda, w, depth, topc):
+    """A top-C past ROUNDS_MAX_TOPC takes the wide route and the radix
+    selection at the flat instances' W; at the threshold the flat merge's
+    rounds: both bitwise the plain version."""
+    q2, ft = _wide_inputs(cuda, w * 40, 12, 21, w + topc, "exact")
+    route = scan_route(12, w, depth, topc)
+    assert route == ("flat" if topc <= ROUNDS_MAX_TOPC else "wide")
+    out = scan_v3(q2, ft, w=w, depth=depth, topc=topc)
+    torch.cuda.synchronize()
+    for o, p in zip(out, scan_v3_plain(q2, ft, w=w, depth=depth, topc=topc)):
+        assert torch.equal(o, p)
+
+
+def test_scan_v3_batch_chunks_bitwise_equal_plain(cuda, monkeypatch):
+    """A scratch ceiling that holds 16 queries a launch: 50 queries run in
+    four launches, bitwise the plain version."""
+    from spotify_recommender_tpu_torch.ops.cuda import scan_v3 as s3
+
+    w, depth = 2048, 5
+    monkeypatch.setattr(s3, "SCRATCH_CEILING",
+                        16 * s3.slice_bytes(1, w, depth))
+    assert s3.batch_chunk(50, w, depth) == 16
+    q2, ft = _wide_inputs(cuda, w * 12, 12, 50, 3, "unit")
+    before = scan_v3.launches
+    s3.scan_plan.cache_clear()   # plans made under the patched ceiling
+    try:
+        out = scan_v3(q2, ft, w=w, depth=depth, topc=100)
+        torch.cuda.synchronize()
+    finally:
+        s3.scan_plan.cache_clear()
+    assert scan_v3.launches == before + 4
+    for o, p in zip(out, scan_v3_plain(q2, ft, w=w, depth=depth, topc=100)):
+        assert torch.equal(o, p)
+
+
+@pytest.mark.parametrize("w,f,topc", [(512, 64, 32), (512, 64, 0),
+                                      (2048, 12, 32), (2048, 12, 0),
+                                      (512, 12, 1000)])
+def test_scan_v2_wide_route_bitwise_equals_plain(cuda, w, f, topc):
+    """Kernel 4 on the wide route: F = 64 at the layout's W = 512 (rows too
+    wide for the flat tile), W = 2048, a top-C past the rounds; masks,
+    zero and tiny norms, exclusions; compact and full structures."""
+    np_ = w * 9
+    q2, ft = _wide_inputs(cuda, np_, f, 23, w + f + topc, "unit")
+    rng = np.random.default_rng(w + topc)
+    norms = torch.from_numpy(rng.random(np_).astype(np.float32) + 0.5).to(cuda)
+    norms[5], norms[6] = 0.0, 1e-12
+    valid = np_ - w - 5
+    norms[valid:] = 0.0
+    qn = torch.from_numpy(rng.random(23).astype(np.float32) + 0.5).to(cuda)
+    excl = torch.from_numpy(rng.integers(-1, valid, 23)).to(cuda)
+    assert scan_route(f, w, 3, topc) == "wide"
+    before = scan_v2.launches
+    out = scan_v2(q2, qn, ft, norms, excl, valid, w=w, eps=1e-8, topc=topc)
+    torch.cuda.synchronize()
+    assert scan_v2.launches == before + 1
+    plain = scan_v2_plain(q2, qn, ft, norms, excl, valid, w=w, eps=1e-8,
+                          topc=topc)
+    for o, p in zip(out, plain):
+        assert torch.equal(o, p), (o != p).sum().item()
+    assert not (out[1] == excl[:, None]).any()
+
+
+DEEP = RetrievalConfig(scan_bins=2048, scan_depth=5, scan_escalate=6)
+
+
+def test_certified_and_approx_at_wide_bins_and_deep_lists(cuda):
+    """`RetrievalConfig(scan_bins=2048, scan_depth=5, scan_escalate=6)`
+    builds and answers on the card (no ValueError): the certified tier
+    index for index the fixed-order oracle at k = 10 and k = 4100, the
+    approx tier at k = 4100 with every slot a real row."""
+    rng = np.random.default_rng(9)
+    n, b = 40000, 24
+    feats = rng.random((n, 12), dtype=np.float32)
+    rows = rng.integers(0, n, b)
+    cr = CertifiedRetriever(feats, None, DEEP, cuda)
+    assert (cr.layout.w, cr.layout.depth) == (2048, 5)
+    f = torch.from_numpy(feats).to(cuda)
+    q = f[torch.from_numpy(rows).to(cuda)]
+    for k in (10, 4100):
+        s, i = cr(feats[rows], k, exclude_rows=rows)
+        fs, fi = similarity.exact_topk_chunked(
+            q, f, cr.layout.norms1d[:n], exclude_rows=torch.from_numpy(
+                rows).to(cuda), k=k, fixed_order=True)
+        assert torch.equal(i, fi) and torch.equal(s, fs)
+    ap = ApproxRetriever(feats, None, DEEP, cuda)
+    s, i = ap(feats[rows], 4100, exclude_rows=rows)
+    assert ((i >= 0) & (i < n)).all() and torch.isfinite(s).all()
+    assert not (i == torch.from_numpy(rows).to(cuda)[:, None]).any()
+
+
+def test_escalation_rescans_at_depth_6_on_card(cuda):
+    """Each query's top-12 in one bin: depth 5 and the depth-6 rescan
+    cannot certify k = 10, so every query is rescanned once, then served
+    by the oracle (tests/test_torch_scan_shapes.py, on the card)."""
+    rng = np.random.default_rng(6)
+    w = 2048
+    n = 12 * w
+    feats = rng.random((n, 12), dtype=np.float32)
+    q = np.zeros((3, 12), np.float32)
+    q[:, 0] = 1.0
+    for r in range(12):
+        feats[7 + r * w] = 0.0
+        feats[7 + r * w, :2] = [1.0, 0.01 * r]
+    cr = CertifiedRetriever(feats, None, DEEP, cuda)
+    s, i = cr(q, 10)
+    assert cr.escalations == 3 and cr.fallbacks == 3
+    assert i[0].tolist() == [7 + r * w for r in range(10)]
 
 
 def _fused_inputs(cuda, n, b, seed, data="random", k=10):
@@ -1234,10 +1425,15 @@ def test_autotune_on_the_card(cuda, tmp_path, monkeypatch):
     before = scan_v3.launches
     res = autotune.tune(n=50_000, b=64, k=10, iters=2, reps=1, device=cuda,
                         grid=((2, 3, 128, 256, 8192), (2, 3, 256, 256, 8192),
-                              (2, 3, 2048, 256, 8192)))
+                              (2, 3, 2048, 256, 8192),
+                              (2, 3, 128, 256, 1000)))
     assert scan_v3.launches > before
-    [failed] = res.failed              # W = 2048: the kernels take W <= 1024
-    assert failed["scan_bins"] == 2048 and "ValueError" in failed["error"]
+    # a catalog tile that is not a multiple of 128 pads the catalog to
+    # 50,000 columns, which no W divides; W = 2048 answers
+    [failed] = res.failed
+    assert failed["catalog_tile"] == 1000 and "ValueError" in failed["error"]
+    assert any(c["scan_bins"] == 2048 and c["error"] is None
+               for c in res.candidates)
     assert res.saved and autotune.load_tuned(50_000, 64, 12, 10,
                                              device=cuda) is not None
 

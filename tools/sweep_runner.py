@@ -7,12 +7,13 @@ ARGS...`), in the checkouts' order, then in the reverse order in the next
 round, and so on; the first round's workers also get `--check`.  A
 worker imports its checkout's package (`import_checkout`), which builds
 its libraries into the checkout's own `_build/`, and prints one JSON line
-per case: `case`, `ms`, with `--check` `bitwise_plain`, and any other keys
-of its own.  A line without `ms` (a case the checkout does not take) is
-left out.  `run` prints one JSON line per (case, checkout), its median
-over the rounds beside each round's time, then the card's name and power
-limit; with `out` it writes them as one JSON file, and it exits non-zero
-if a case differed from its plain version.
+per case: `case`, `ms`, with `--check` `bitwise_plain`, optionally the
+further times of TIMES, and any other keys of its own.  A line without
+`ms` (a case the checkout does not take) is left out.  `run` prints one
+JSON line per (case, checkout), the median of each time over the rounds
+beside each round's `ms`, then the card's name and power limit; with
+`out` it writes them as one JSON file, and it exits non-zero if a case
+differed from its plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ import statistics
 import subprocess
 import sys
 from pathlib import Path
+
+# times a worker's line may hold beside `ms`; each goes out as its median
+TIMES = ("device_ms", "host_us")
 
 
 def import_checkout(root: Path, tool: str) -> None:
@@ -40,7 +44,7 @@ def run(script: str, builds: dict, args: list, rounds: int,
     over `rounds` alternating rounds with the worker arguments `args`;
     `meta` goes into the JSON file beside the card and the rows."""
     tool = Path(script).stem
-    times, equal, extra = {}, {}, {}
+    times, more, equal, extra = {}, {}, {}, {}
     order = list(builds)
     for r in range(rounds):
         for build in (order if r % 2 == 0 else order[::-1]):
@@ -57,6 +61,9 @@ def run(script: str, builds: dict, args: list, rounds: int,
                     continue
                 key = (row.pop("case"), build)
                 times.setdefault(key, []).append(row.pop("ms"))
+                for t in TIMES:
+                    if t in row:
+                        more.setdefault(key + (t,), []).append(row.pop(t))
                 if "bitwise_plain" in row:
                     equal[key] = row.pop("bitwise_plain")
                 extra.setdefault(key, row)
@@ -65,6 +72,9 @@ def run(script: str, builds: dict, args: list, rounds: int,
         row = dict(case=case, build=build, ms=statistics.median(ts),
                    rounds=ts, **extra[case, build],
                    bitwise_plain=equal.get((case, build)))
+        for t in TIMES:
+            if (case, build, t) in more:
+                row[t] = statistics.median(more[case, build, t])
         rows.append(row)
         print(json.dumps(row), flush=True)
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
