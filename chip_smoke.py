@@ -20,12 +20,19 @@ its plain torch version on the card, runs the reference-style CLI on a
 - phase 7: the fused score + top-k kernel (kernel 3) at those shapes, both
   modes, k = 10 and 100 and B = 1, and on a tie-heavy catalog (each query's
   row copied to both sides of a catalog split or warp edge), bitwise equal
-  to its plain version (phase 2 fails if a warp-list instance spills); its
-  large-k path (k > 128) at k = 129, 1000 and 4096, B = 1024 and B = 1,
-  and on the tie-heavy catalog at k = 1000, bitwise, timed beside k = 128;
+  to its plain version (phase 2 fails if an instance spills, if a partial
+  kernel's SASS lacks the LDGSTS of its cp.async-staged walk, or a bf16
+  one the FFMA of its contraction); its large-k path (every k > 64) at
+  k = 65, 129, 1000 and 4096, B = 1024 and B = 1, and on the tie-heavy
+  catalog at k = 1000, bitwise, timed beside k = 64, the warp lists'
+  largest; `torch.topk(torch.mm)` at B =
+  1, k = 10 (the `fused_topk_b1` entry's library_ms); each kernel-3 entry
+  with its `issue_floor_ms` from the SASS of the instance it launches
+  (`kernel3_issue_floor`);
 - phase 8: the Retriever's "pallas" backend and an exact `FusedRetriever`,
-  at k = 10 and at k = 1000 (B = 1024 and B = 1) against the fixed-order
-  oracle;
+  at k = 10 (B = 1024, and B = 1: the `fused_topk_b1` entry's launches,
+  on the path `fused_route` picks) and at k = 1000 (B = 1024 and B = 1)
+  against the fixed-order oracle;
 - phase 9: `StreamingRetriever` over a memory-mapped 4,000,000 x 12
   catalog directory, B = 256, window 1,048,576, and `retrieve --streaming`;
   the tier at k = 1000 against the fixed-order oracle;
@@ -260,9 +267,11 @@ from spotify_recommender_tpu_torch.ops.cuda.fused import (  # noqa: E402
     SMALL_K_MAX,
     _large_plan,
     _splits,
+    fused_route,
     fused_topk,
     fused_topk_large,
     fused_topk_plain,
+    query_tile,
 )
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import (  # noqa: E402
     scan_v2,
@@ -322,9 +331,11 @@ TOL_EXACT, TOL_FAST = 1e-6, 1e-5
 TOL_BF16 = 2 * 2.0**-8 + 1e-6
 PALLAS = "spotify_recommender_tpu/ops/pallas/fused_topk.py"
 CSRC = "spotify_recommender_tpu_torch/csrc"
-# kernel 3's large-k path (k > SMALL_K_MAX): the k held to the plain
-# version in phase 7, and the k of the entry points driven through it
-LARGE_KS = (SMALL_K_MAX + 1, 1000, 4096)
+# kernel 3's large-k path (every k > SMALL_K_MAX): the k held to the plain
+# version in phase 7 (129: the least k of a 384-key buffer that a step of
+# U x 128 columns must not overrun), and the k of the entry points driven
+# through it
+LARGE_KS = (SMALL_K_MAX + 1, 129, 1000, 4096)
 K_LARGE = 1000
 # an H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W): the
 # bound of a kernel is the larger of its operations over the peak for its
@@ -517,21 +528,62 @@ def dot_flops(q: torch.Tensor, ft: torch.Tensor, products: int) -> float:
 
 
 # kernel 3's ptxas counts for sm_90a, as measured on the H100 machine
-# (PERF.md, kernel 3): (registers, most spill-store bytes allowed)
+# (PERF.md, kernel 3): registers; none may spill.  `<KPL,EXACT,TQ[,bf16]>`
+# the warp lists' instances, `<EXACT,TQ[,bf16]>` the large-k path's
 KERNEL3_REGS = {
-    "fused_partial_kernel<4,0>": (104, 0), "fused_partial_kernel<2,0>": (87, 0),
-    "fused_partial_kernel<1,0>": (80, 0), "fused_partial_kernel<4,1>": (104, 0),
-    "fused_partial_kernel<2,1>": (87, 0), "fused_partial_kernel<1,1>": (79, 0),
-    "fused_partial_kernel<4,0,bf16>": (104, 0),
-    "fused_partial_kernel<2,0,bf16>": (85, 0),
-    "fused_partial_kernel<1,0,bf16>": (80, 0),
+    "fused_partial_kernel<1,1,16>": 150, "fused_partial_kernel<2,1,16>": 150,
+    "fused_partial_kernel<1,0,16>": 150, "fused_partial_kernel<2,0,16>": 150,
+    "fused_partial_kernel<1,0,16,bf16>": 147,
+    "fused_partial_kernel<2,0,16,bf16>": 148,
+    "fused_partial_kernel<1,1,4>": 88, "fused_partial_kernel<2,1,4>": 88,
+    "fused_partial_kernel<1,0,4>": 88, "fused_partial_kernel<2,0,4>": 88,
+    "fused_partial_kernel<1,0,4,bf16>": 93,
+    "fused_partial_kernel<2,0,4,bf16>": 95,
 }
 KERNEL3_LARGE_REGS = {
-    "fused_large_partial_kernel<0>": (64, 0),
-    "fused_large_partial_kernel<1>": (80, 8),
-    "fused_large_partial_kernel<0,bf16>": (64, 0),
-    "fused_large_merge_kernel<>": (32, 0),
+    "fused_large_partial_kernel<1,16>": 108,
+    "fused_large_partial_kernel<0,16>": 108,
+    "fused_large_partial_kernel<0,16,bf16>": 113,
+    "fused_large_partial_kernel<1,4>": 88,
+    "fused_large_partial_kernel<0,4>": 88,
+    "fused_large_partial_kernel<0,4,bf16>": 93,
+    "fused_merge_kernel<>": 32,
 }
+
+
+def kernel3_instance(b: int, k: int, exact: bool, bf16: bool,
+                     path: str = None) -> str:
+    """The short name (`_short_name`) of the partial kernel instance that
+    kernel 3 launches at (B, k) for the storage on `path` ("lists" or
+    "large"; by default the route's): the lists' KPL and the query
+    tile."""
+    tq = query_tile(b)
+    tail = f",{tq}{',bf16' if bf16 else ''}>"
+    if (path or fused_route(k, b)) == "large":
+        return f"fused_large_partial_kernel<{int(exact)}" + tail
+    kpl = 1 if k <= 32 else 2
+    return f"fused_partial_kernel<{kpl},{int(exact)}" + tail
+
+
+def kernel3_issue_floor(sass: dict, q, ft, k: int, exact: bool,
+                        path: str = None) -> dict:
+    """issue_floor_ms of kernel 3 on queries q against catalog ft at k: the
+    lane instructions a product of the dot loop of the instance that call
+    launches on `path` (`kernel3_instance`; `sass_dot_issue` on its SASS;
+    FFMA a product for bf16, FADD for fp32), times the B x Np x Fq
+    products, over every SM's 128 lanes at the card's max SM clock; with
+    the instance and its loop."""
+    bf16 = ft.dtype == torch.bfloat16
+    name = kernel3_instance(q.shape[0], k, exact, bf16, path=path)
+    (ins,) = [v for fn, v in sass.items() if _short_name(fn) == name]
+    per_product, loop = sass_dot_issue(ins, "FFMA" if bf16 else "FADD")
+    mhz = float(nvidia_smi("clocks.max.sm").splitlines()[0].split()[0])
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    return dict(issue_floor_ms=q.shape[0] * ft.shape[1] * q.shape[1]
+                * per_product / (sms * 128 * mhz * 1e6) * 1e3,
+                issue_per_product=per_product, dot_loop_instructions=loop,
+                instance=name)
+
 
 # the serving library's bin-scan instances (kernels 1 and 4), as measured
 # on the H100 machine (PERF.md, section 6): (registers, spill-store bytes).
@@ -940,6 +992,9 @@ def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
                           10)
             del qu, fu
             how = "torch.topk(torch.mm(q/qn, ft/cn), k)"
+            floor13 = kernel3_issue_floor(
+                sass_functions(_build.build(_build.SERVING), "partial_kernel"),
+                q, ft, out[0].shape[1], True)
         else:
             out = call(digest=True)
             out = (*out[:-1], *out[-1])
@@ -967,8 +1022,7 @@ def ablation_phase(n: int, b: int, kernels: dict, launches: dict) -> None:
             **bound(dot_flops(q, ft, q.shape[1]),
                     "bf16" if q.dtype == torch.bfloat16 else "fp32",
                     *inputs, *out),
-            library_ms=lib, library=how,
-            **({} if body is None else floor13),
+            library_ms=lib, library=how, **floor13,
         )
     t_time13 = time.perf_counter() - t13 - t_cmp13
     # the four paths, each with its kernels' counts set to 0 just before
@@ -2384,6 +2438,9 @@ def sharded_phase(kernels: dict, launches: dict, work: Path) -> None:
         **bound(dot_flops(queries, ft0, ft0.shape[0]), "fp32", *fargs[:5],
                 fkv, fki),
         library_ms=sync_ms(lambda: torch.topk(torch.mm(queries, ft0), k), 10),
+        **kernel3_issue_floor(sass_functions(_build.build(_build.SERVING),
+                                             "partial_kernel"),
+                              queries, ft0, k, True),
     )
     del q2, kv, ki, kb, pv, pi_, pb, real, pallas, fr0, ft0
     del fargs, fkv, fki
@@ -3020,7 +3077,7 @@ def main() -> None:
         fused_regs += [(nm, r, sp) for nm, r, sp in reports
                        if nm.startswith("fused_partial_kernel")]
         large_regs += [(nm, r, sp) for nm, r, sp in reports
-                       if nm.startswith("fused_large")]
+                       if nm.startswith(("fused_large", "fused_merge"))]
         abl_regs += [(nm, r, sp) for nm, r, sp in reports
                      if nm.startswith("ablation_kernel")]
         if lib is _build.SERVING:
@@ -3028,16 +3085,25 @@ def main() -> None:
                          if nm in BIN_SCAN_REGS or nm.startswith(
                              ("scan_kernel", "merge_kernel", "wide_",
                               "select_kernel"))]
-    # kernel 3: each instance's registers within 2 of its measured count
-    # and its spill stores at most the measured bytes (none but the exact
-    # large-k instance's 8)
+    # kernel 3: each instance's registers within 2 of its measured count,
+    # none spilling; every partial kernel stages the catalog with cp.async
+    # (LDGSTS), and the bf16 ones contract with FFMA
     for regs, want in ((fused_regs, KERNEL3_REGS),
                        (large_regs, KERNEL3_LARGE_REGS)):
         check({nm for nm, *_ in regs} == set(want)
-              and all(abs(r - want[nm][0]) <= 2 and sp <= want[nm][1]
+              and all(abs(r - want[nm]) <= 2 and sp == 0
                       for nm, r, sp in regs),
               f"kernel 3's instances (registers, spill bytes): {regs}, "
-              f"expected {want}")
+              f"expected {want} and no spill")
+    k3_sass = sass_counts(built[_build.SERVING.name][0], "fused_",
+                          ("FFMA", "LDGSTS"))
+    k3_sass = {_short_name(fn): c for fn, c in k3_sass.items()
+               if "partial_kernel" in fn}
+    check(len(k3_sass) == len(KERNEL3_REGS) + len(KERNEL3_LARGE_REGS) - 1
+          and all(ld > 0 for _, ld in k3_sass.values())
+          and all(ff > 0 for nm, (ff, _) in k3_sass.items() if "bf16" in nm),
+          f"kernel 3's SASS (FFMA, LDGSTS): {k3_sass} (LDGSTS in every "
+          f"partial kernel, FFMA in the bf16 ones)")
     # kernels 1 and 4: the flat instances keep their registers (within 2),
     # the wide route's are as measured, none spills
     check({nm for nm, *_ in scan_regs} == set(BIN_SCAN_REGS)
@@ -3065,16 +3131,18 @@ def main() -> None:
     print("phase 2 build (both libraries and the native csv parser at "
           "once): " + "; ".join(line) + f"; {native_ingest.LIB_NAME} (g++) in "
           f"{gxx_s:.1f} s"
-          + "; kernel 3 (fused_partial_kernel<KPL,EXACT>) registers: "
+          + "; kernel 3 (fused_partial_kernel<KPL,EXACT,TQ>) registers: "
           + ", ".join(f"{nm} {r}" for nm, r, _ in fused_regs) + ", no spill"
+          + "; its SASS FFMA / LDGSTS: "
+          + ", ".join(f"{nm} {ff} / {ld}" for nm, (ff, ld) in k3_sass.items())
           + f"; kernels 1 and 4: {len(scan_regs)} instances, "
           + f"{sum(nm.startswith(('scan_kernel', 'merge_kernel')) for nm, *_ in scan_regs)}"
           + " flat ones within 2 registers of their measured counts, the wide route's "
           + ", ".join(f"{nm} {r}" for nm, r, _ in scan_regs
                       if not nm.startswith(("scan_kernel", "merge_kernel")))
           + ", no spill"
-          + "; its large-k path registers (spill-store bytes): "
-          + ", ".join(f"{nm} {r} ({sp})" for nm, r, sp in large_regs)
+          + "; its large-k path and merge registers: "
+          + ", ".join(f"{nm} {r}" for nm, r, _ in large_regs) + ", no spill"
           + "; kernel 10 (mxu_wgmma_kernel<k steps>) SASS HGMMA / UTMALDG: "
           + ", ".join(f"{_short_name(nm)} {h} / {t}"
                       for nm, (h, t) in mxu_sass.items())
@@ -3312,12 +3380,16 @@ def main() -> None:
     }
     line, fused_err, fused_times = [], 0.0, {}
     large_err, large_out, large_ms = 0.0, {}, {}
+    # kernel 3's instances' SASS: each entry's issue floor
+    sass3 = sass_functions(_build.build(_build.SERVING), "partial_kernel")
     # the nearest PyTorch has to kernel 3: two calls, a product and a top-k,
     # on the prenormalized operands (TF32 off)
     lib_fp32 = sync_ms(lambda: torch.topk(torch.mm(qunit, modes[False][1]), k),
                        10)
     lib_large = {nb: sync_ms(lambda: torch.topk(torch.mm(
         qunit[:nb], modes[False][1]), K_LARGE), 5) for nb in (b, 1)}
+    lib_b1 = sync_ms(lambda: torch.topk(torch.mm(qunit[:1], modes[False][1]),
+                                        k), 50)
     # a tie-heavy catalog: each query's own row copied to both sides of a
     # catalog split edge or of a warp's 32-column edge (columns e - 1 and
     # e), so its best scores tie across the edge
@@ -3355,17 +3427,27 @@ def main() -> None:
         t_k = sync_ms(lambda: fused_topk(*args, k=k, exact=exact), 20)
         t_p = sync_ms(lambda: fused_topk_plain(*args, k=k, exact=exact), 3)
         t_100 = sync_ms(lambda: fused_topk(*args, k=100, exact=exact), 10)
-        t_1 = sync_ms(lambda: fused_topk(qq[:1], qn[:1], ft3, n_dev, excl[:1],
-                                         n, k=k, exact=exact), 50)
+        a1 = (qq[:1], qn[:1], ft3, n_dev, excl[:1], n)
+        kv1, ki1, err1 = compare_fused(a1, k, exact,
+                                       f"fused exact={exact} B=1")
+        fused_err = max(fused_err, err1)
+        t_1 = sync_ms(lambda: fused_topk(*a1, k=k, exact=exact), 50)
         t_tie = sync_ms(lambda: fused_topk(*ties[exact], k=k, exact=exact), 10)
         fused_times[exact] = (t_k, t_p)
         if exact:          # exact products need fp32, outside the tensor cores
             fused_bound = bound(dot_flops(qq, ft3, ft3.shape[0]), "fp32",
                                 *args[:5], kv, ki)
+            b1_entry = dict(
+                ms=t_1, plain_ms=sync_ms(lambda: fused_topk_plain(
+                    *a1, k=k, exact=True), 3),
+                **bound(dot_flops(qq[:1], ft3, ft3.shape[0]), "fp32",
+                        *a1[:5], kv1, ki1),
+                library_ms=lib_b1,
+                **kernel3_issue_floor(sass3, qq[:1], ft3, k, True))
+            floor_b = kernel3_issue_floor(sass3, qq, ft3, k, True)
         # the large-k path: bitwise at B = 1024 and B = 1 for each of
         # LARGE_KS and on the tie-heavy catalog at K_LARGE, its launches
-        # counted; timed beside the warp lists' k = 128
-        a1 = (qq[:1], qn[:1], ft3, n_dev, excl[:1], n)
+        # counted; timed beside the warp lists' largest k (SMALL_K_MAX)
         launched = fused_topk_large.launches
         for kk in LARGE_KS:
             for aa in (args, a1):
@@ -3394,7 +3476,9 @@ def main() -> None:
             f"the tie-heavy catalog ({tie_top[exact]} queries tie at the top); "
             f"vs oracle max score diff {oerr:.3g}, {near} near-tie positions "
             f"differ; kernel {t_k:.3f} ms vs plain {t_p:.3f} ms; k=100 "
-            f"{t_100:.3f} ms; B=1 {t_1:.4f} ms; tie-heavy {t_tie:.3f} ms")
+            f"{t_100:.3f} ms; B=1 {t_1:.4f} ms (bitwise equal to plain; "
+            f"torch.topk(torch.mm) {lib_b1:.4f} ms); tie-heavy {t_tie:.3f} "
+            f"ms")
     del ties
     kv, ki, _ = k100[True]
     rs100, ri100 = similarity.exact_topk_chunked(queries, f_dev, n_dev,
@@ -3420,6 +3504,7 @@ def main() -> None:
             **bound(dot_flops(la[0], ft_exact, ft_exact.shape[0]), "fp32",
                     *la[:5], *large_out[True, nb]),
             library_ms=lib_large[nb],
+            **kernel3_issue_floor(sass3, la[0], ft_exact, K_LARGE, True),
         )
     del large_out
     print(f"phase 7 fused kernel: N={n} B={b} k={k}; " + "; ".join(line)
@@ -3483,6 +3568,22 @@ def main() -> None:
                         f"oracle max score diff {oerr:.3g}, {ties} near-tie "
                         f"positions differ; {t_l:.3f} ms median of 10")
         del outs
+    # B = 1 at k through the same entry points (the `fused_topk_b1` entry's
+    # launches: the route's path)
+    fused_topk.launches = fused_topk_large.launches = 0
+    for what, fn, tol in entries:
+        s1, i1 = fn(q1, k=k, exclude_rows=e1)
+        compare_oracle(s1, i1, rs[:1], ri[:1], tol, f"{what} B=1")
+    torch.cuda.synchronize()
+    routed = fused_topk if fused_route(k, 1) == "lists" else fused_topk_large
+    launches["fused_topk_b1"] = routed.launches
+    check(routed.launches == len(entries)
+          and fused_topk.launches + fused_topk_large.launches == len(entries),
+          f"B=1 k={k}: {fused_topk.launches} warp-list and "
+          f"{fused_topk_large.launches} large-k launches, route "
+          f"{fused_route(k, 1)}")
+    line.append(f"B=1 k={k}: {len(entries)} launches of the "
+                f"{fused_route(k, 1)} path")
     print(f"phase 8 fused retrievers: N={n} B={b} k={k}; " + "; ".join(line))
     del rp, fr, retriever, cr, modes, f_dev
 
@@ -3731,6 +3832,7 @@ def main() -> None:
             **bound(dot_flops(qb, fr11.features_t, qb.shape[1]), "bf16",
                     *args[:5], kv, ki),
             library_ms=lib,
+            **kernel3_issue_floor(sass3, qb, fr11.features_t, k, False),
         )
         t_b = wall_ms(lambda: fr11(queries, k, excl), 20)
         t_1 = wall_ms(lambda: fr11(q1, k, e1), 20)
@@ -3785,9 +3887,12 @@ def main() -> None:
         source=f"{CSRC}/fused_topk.cu",
         replaces=f"{PALLAS}:52", max_abs_err=fused_err,
         ms=fused_times[True][0], plain_ms=fused_times[True][1],
-        **fused_bound, library_ms=lib_fp32,
+        **fused_bound, library_ms=lib_fp32, **floor_b,
     )
     launches["fused_topk"] = fused_launches
+    kernels["fused_topk_b1"] = dict(
+        source=f"{CSRC}/fused_topk.cu", replaces=f"{PALLAS}:52",
+        max_abs_err=fused_err, **b1_entry)
 
     # ---- 12. TPU kernels 9-12 and the three experiment paths that run them
     t12 = time.perf_counter()

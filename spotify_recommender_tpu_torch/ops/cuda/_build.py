@@ -78,19 +78,21 @@ SERVING = Library("serving", (
     "fused_topk.cu",
 ), {
     # q, qn, ft, ft_sd, ft_sc, cn, excl, b, fq, fc, np, valid, k, exact,
-    # bf16, eps, nsplit, split_cols, pv, pc, ov, oi, stream
+    # bf16, eps, nsplit, split_cols, tq, vec, keys, ov, oi, stream
     "srt_fused_topk": (_P, _P, _P, _I64, _I64, _P, _P, _I64, _I64, _I64,
-                       _I64, _I64, _I64, _I64, _I64, _F32, _I64, _I64, _P,
-                       _P, _P, _P, _P),
-    # fq, k, exact, bf16, out (int)
-    "srt_fused_blocks_per_sm": (_I64, _I64, _I64, _I64, _P),
+                       _I64, _I64, _I64, _I64, _I64, _F32, _I64, _I64, _I64,
+                       _I64, _P, _P, _P, _P),
+    # fq, fc, k, exact, bf16, tq, out (int)
+    "srt_fused_blocks_per_sm": (_I64, _I64, _I64, _I64, _I64, _I64, _P),
     # q, qn, ft, ft_sd, ft_sc, cn, excl, b, fq, fc, np, valid, k, exact,
-    # bf16, eps, nsplit, split_cols, cap, keys, ov, oi, stream
+    # bf16, eps, nsplit, split_cols, cap, tq, vec, keys, ov, oi, stream
     "srt_fused_topk_large": (_P, _P, _P, _I64, _I64, _P, _P, _I64, _I64,
                              _I64, _I64, _I64, _I64, _I64, _I64, _F32, _I64,
-                             _I64, _I64, _P, _P, _P, _P),
-    # fq, exact, bf16, out (int)
-    "srt_fused_large_blocks_per_sm": (_I64, _I64, _I64, _P),
+                             _I64, _I64, _I64, _I64, _P, _P, _P, _P),
+    # fq, fc, exact, bf16, tq, out (int)
+    "srt_fused_large_blocks_per_sm": (_I64, _I64, _I64, _I64, _I64, _P),
+    # large, k, tq, fc, bf16, out (4 ints)
+    "srt_fused_tiling": (_I64, _I64, _I64, _I64, _I64, _P),
     # x, hi, lo, n, stream
     "srt_split_bf16x2": (_P, _P, _P, _I64, _P),
     # q, qn, q2, b, f, stream

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from spotify_recommender_tpu_torch.ops.cuda import _build
+from spotify_recommender_tpu_torch.ops.cuda.fused import fma_step
 
 # epilogue flags and reductions (csrc/ablation_r2.cu has the same values)
 GUARD, DIV, MUL, CLIP, MASK = 1, 2, 4, 8, 16
@@ -77,16 +78,6 @@ def as_int(x) -> int:
     if isinstance(x, torch.Tensor):
         return int(x.reshape(-1)[0].item())
     return int(np.asarray(x).reshape(-1)[0])
-
-
-def fma_step(acc: torch.Tensor, a: torch.Tensor,
-             b: torch.Tensor) -> torch.Tensor:
-    """fp32 acc + a * b rounded once, as the card's __fmaf_rn, for bf16 a
-    and b (broadcasting): the product of two bf16 values (8 significant
-    bits each) is exact in fp64, and the fp64 sum of two operands of at
-    most 24 significant bits, rounded again to fp32, is the sum rounded
-    once (53 >= 2 * 24 + 2).  One fp64 temporary of acc's shape."""
-    return acc.double().addcmul_(a.double(), b.double()).float()
 
 
 def plain_dots(q: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:

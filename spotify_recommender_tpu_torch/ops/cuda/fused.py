@@ -27,15 +27,20 @@ the TPU kernel `_fused_kernel` (spotify_recommender_tpu/ops/pallas/
 fused_topk.py:52) computes.
 
 On a CUDA tensor `fused_topk` launches the hand-written kernels
-(`csrc/fused_topk.cu`): for k <= SMALL_K_MAX the warp-list kernel, above
-it `fused_topk_large`'s candidate buffers and radix select (any k >= 1;
-`emulate_large_k` is its selection in torch).  On a CPU tensor it runs
-`fused_topk_plain`, the same arithmetic in torch ops, chunked over the
-catalog.  On the card the kernels and the plain version agree bitwise.
+(`csrc/fused_topk.cu`): by `fused_route(k, B)` the warp-list kernel (k up
+to a limit of B, at most SMALL_K_MAX) or `fused_topk_large`'s candidate
+buffers and radix select (any k >= 1; `emulate_large_k` is its selection
+in torch), each with the
+merge both share.  The plans (`query_tile`, `tile`, `_splits`,
+`_large_plan`, `walk_chunks`) are plain Python, so the CPU tests reach
+them.  On a CPU tensor it runs `fused_topk_plain`, the same arithmetic in
+torch ops, chunked over the catalog.  On the card the kernels and the
+plain version agree bitwise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple
@@ -45,19 +50,49 @@ import torch
 
 from spotify_recommender_tpu_torch.core.config import COSINE_EPS
 from spotify_recommender_tpu_torch.ops.cuda import _build
-from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import SCRATCH_CAP, device_sms
+from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
+    SCRATCH_CAP,
+    device_sms,
+    row_ptrs,
+)
 from spotify_recommender_tpu_torch.ops.topk import merge_topk, topk_stable
 
-SMALL_K_MAX = 128         # the warp lists' largest k: 4 slots per lane
-_TQ = 16                  # queries per block
-_TC = 128                 # columns per tile
-_MAX_SPLITS = 128
+SMALL_K_MAX = 64          # the warp lists' largest k: 2 slots per lane
+_TC = 128                 # columns per group: one per thread of a block
 _MIN_SPLIT_COLS = 1024    # a split below this costs more in its merge
 _CPU_BLOCKS_PER_SM = 4    # resident blocks per SM assumed without a card
-# the large-k path (csrc/fused_topk.cu, "k > 128"): its scratch, chunk x
+# a batch of at most SMALL_BATCH queries takes the 4-query tile on both
+# paths (csrc/fused_topk.cu): fewer registers, four blocks an SM and no
+# slots past B.  Measured with tools/fused_k_sweep.py (exact fp32, 1M x
+# 12, NVIDIA H100 80GB HBM3 at 700 W; PERF.md, kernel 3), 16 | 4 queries
+# a tile, ms, lists at k = 10 and 64, large at k = 1000:
+#   B = 8     0.1948 | 0.1688 (route, k = 10)
+#   B = 32    0.3336 | 0.2664, 0.7963 | 0.4386; 2.0403 | 0.9865
+#   B = 128   0.6078 | 0.6913, 1.2888 | 0.9647; 2.9150 | 1.9545
+#   B = 256   0.9250 | 1.2584, 1.7410 | 1.5972; 4.2322 | 2.9693
+#   B = 1024  2.4837 | 4.5289, 3.8184 | 6.8459; 9.2338 | 7.5191
+# The rule gives up the lists at B = 128, k = 10 and the large-k path
+# from B = 256 (a tile by path and k; ROADMAP 2b)
+SMALL_BATCH = 128
+# the route (`fused_route`): the warp lists at k up to the limit of the
+# largest B of this table at or below the batch, else the large-k path;
+# both return the same bits, so the route changes speed only.  Measured
+# with tools/fused_k_sweep.py --paths lists,large (exact fp32, 1M x 12,
+# NVIDIA H100 80GB HBM3 at 700 W; PERF.md, kernel 3), lists | large ms:
+#   B = 1     k = 48 0.1506 | 0.1580, 64 0.1659 | 0.1939
+#   B = 4     k = 24 0.1668 | 0.1690, 32 0.1936 | 0.1790
+#   B = 12    k = 32 0.2212 | 0.2503, 40 0.2733 | 0.2598
+#   B = 32    k = 48 0.3949 | 0.3991, 64 0.4386 | 0.4054
+#   B = 256   k = 48 1.5288 | 1.5974, 64 1.7450 | 1.7563
+#   B = 1024  k = 64 3.8184 | 4.0877; 100 4.923 | 4.539
+# Of the measured points it gives up B = 2, k = 64 (0.2057 | 0.2150) and
+# B = 16, k = 40 (0.2864 | 0.2954), and ten within 1.6 %.  Above k = 64
+# the large-k path won at every B, so the lists stop there
+LISTS_MAX_K = ((1, 64), (2, 24), (8, 32), (17, 48), (256, 64))
+# the large-k path (csrc/fused_topk.cu, "the large k"): its scratch, chunk x
 # nsplit x cap keys of 8 bytes, takes at most SCRATCH_CAP, or the buffers
 # of _LARGE_MIN_BLOCKS_PER_SM blocks on every SM where they need more, and
-# never more than LARGE_SCRATCH_CEILING (one block's buffers, 16 queries x
+# never more than LARGE_SCRATCH_CEILING (one block's buffers, TQ queries x
 # cap keys, where they alone need more: k above two million); a split
 # spans at least _LARGE_SPLIT_PER_K x k columns, so that the merge's input
 # (nsplit x k keys a query) stays near a split's width.  The blocks per SM
@@ -73,6 +108,60 @@ _MAX_GRID_Y = 65535
 _TINY_T = 2.0**-60        # below it the filter lets every column through
 _MARGIN = 2.0**-22        # the exact filter's relative margin
 PLAIN_CHUNK_ELEMS = 1 << 26   # (B x columns) per chunk of the plain version
+
+
+def query_tile(b: int) -> int:
+    """Queries per block of either partial kernel for a batch of b: 4 up to
+    SMALL_BATCH, else 16."""
+    return 4 if b <= SMALL_BATCH else 16
+
+
+def tile(large: bool, k: int, tq: int) -> int:
+    """U, the 128-column groups a thread scores per chunk, of the partial
+    kernel instance for (path, k, query tile): csrc/fused_topk.cu's
+    `tile()`, which `srt_fused_tiling` reads back on the card."""
+    return 2 if large and tq == 16 else 4
+
+
+def fused_route(k: int, b: int) -> str:
+    """"lists" (the warp-list kernel, `fused_topk`'s own) or "large" (the
+    large-k path, `fused_topk_large`) for k and a batch of b queries, by
+    LISTS_MAX_K."""
+    top = next(lim for least, lim in reversed(LISTS_MAX_K)
+               if least <= max(b, 1))
+    return "lists" if k <= top else "large"
+
+
+def walk_chunks(np_: int, split_cols: int, u: int, split: int):
+    """The chunks a partial kernel's block walks in split `split`: (first
+    column, end column, groups) of each, in order; U x 128 columns each,
+    the last cut at the split's end (a split of columns [split *
+    split_cols, min(np, (split + 1) * split_cols)))."""
+    begin = split * split_cols
+    end = min(np_, begin + split_cols)
+    out = []
+    for c0 in range(begin, end, u * _TC):
+        c1 = min(end, c0 + u * _TC)
+        out.append((c0, c1, -(-(c1 - c0) // _TC)))
+    return out
+
+
+def copy_width(features_t: torch.Tensor) -> int:
+    """Bytes of each copy that stages the catalog in shared memory: 16, 8
+    or 4 where its columns are contiguous and its base address and row
+    stride are multiples of it; else 0, one value a copy (a row-major
+    window read through `.t()`, a bf16 slice at an odd column)."""
+    fc, np_ = features_t.shape
+    if features_t.stride(1) != 1 and np_ > 1:
+        return 0
+    es = features_t.element_size()
+    align = features_t.data_ptr()
+    if fc > 1:
+        align |= features_t.stride(0) * es
+    for w in (16, 8, 4):
+        if align % w == 0:
+            return w
+    return 0
 
 
 def _check_args(queries, q_norms, features_t, norms, excl, k, exact) -> None:
@@ -118,18 +207,12 @@ def fused_topk_plain(
     b, fq = queries.shape
     fc, np_ = features_t.shape
     dev = queries.device
-    queries = queries.float()      # bf16 values are exact in fp32
     best_s = torch.full((b, k), float("-inf"), device=dev)
     best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
     step = max(1, PLAIN_CHUNK_ELEMS // max(b, 1))
     for off in range(0, np_, step):
         end = min(off + step, np_)
-        ft = features_t[:, off:end].float()
-        # the kernel's chain: one rounding per multiply and per add; query
-        # column d meets catalog row d mod Fc
-        dots = queries[:, 0:1] * ft[0:1]
-        for d in range(1, fq):
-            dots = dots + queries[:, d:d + 1] * ft[d % fc:d % fc + 1]
+        dots = kernel_dots(queries, features_t[:, off:end])
         den = q_norms[:, None] * norms[None, off:end]
         guard = den > eps
         x = dots / torch.where(guard, den, 1.0) if exact else dots
@@ -142,6 +225,35 @@ def fused_topk_plain(
         # lowest column first on equal values
         best_s, best_i = merge_topk(best_s, best_i, ch_s, ch_pos + off, k)
     return best_s, best_i.masked_fill(best_s == float("-inf"), -1)
+
+
+def fma_step(acc: torch.Tensor, a: torch.Tensor,
+             b: torch.Tensor) -> torch.Tensor:
+    """fp32 acc + a * b rounded once, as the card's __fmaf_rn, for bf16 a
+    and b (broadcasting): the product of two bf16 values (8 significant
+    bits each) is exact in fp64, and the fp64 sum of two operands of at
+    most 24 significant bits, rounded again to fp32, is the sum rounded
+    once (53 >= 2 * 24 + 2).  One fp64 temporary of acc's shape."""
+    return acc.double().addcmul_(a.double(), b.double()).float()
+
+
+def kernel_dots(queries: torch.Tensor, ft: torch.Tensor) -> torch.Tensor:
+    """(B, cols) fp32 dots of queries (B, Fq) with catalog columns ft (Fc,
+    cols) in the kernel's chain, query column d meeting catalog row d mod
+    Fc: the rounded first product, then per d one rounded multiply and one
+    rounded add (fp32), or one fused multiply-add (bf16, summed in fp64 and
+    rounded to fp32: the card's __fmaf_rn bit for bit, `fma_step`; one
+    fp64 temporary of the output's shape)."""
+    fq, fc = queries.shape[1], ft.shape[0]
+    q, f = queries.float(), ft.float()        # bf16 values are exact in fp32
+    dots = q[:, 0:1] * f[0:1]
+    if queries.dtype != torch.bfloat16:
+        for d in range(1, fq):
+            dots = dots + q[:, d:d + 1] * f[d % fc:d % fc + 1]
+        return dots
+    for d in range(1, fq):
+        dots = fma_step(dots, q[:, d:d + 1], f[d % fc:d % fc + 1])
+    return dots
 
 
 def filter_pass(dot: torch.Tensor, qn: torch.Tensor, cn: torch.Tensor,
@@ -252,10 +364,7 @@ def emulate_large_k(queries, q_norms, features_t, norms, excl, valid, *, k,
     cap = plan[3] if cap is None else cap
     if cap < k + _TC or split_cols * nsplit < np_:
         raise ValueError(f"cap {cap} < k + {_TC} or splits short of {np_}")
-    q, ft = queries.float(), features_t.float()
-    dots = q[:, 0:1] * ft[0:1]                   # the kernel's chain
-    for d in range(1, fq):
-        dots = dots + q[:, d:d + 1] * ft[d % fc:d % fc + 1]
+    dots = kernel_dots(queries, features_t)      # the kernel's chain
     den = q_norms[:, None] * norms[None, :]
     guard = den > eps
     x = dots / torch.where(guard, den, 1.0) if exact else dots
@@ -297,42 +406,51 @@ def emulate_large_k(queries, q_norms, features_t, norms, excl, valid, *, k,
     return torch.from_numpy(out_v), torch.from_numpy(out_c), stats
 
 
+def _device_index(device: torch.device) -> int:
+    return (device.index if device.index is not None
+            else torch.cuda.current_device())
+
+
 @functools.lru_cache(maxsize=None)
-def _occupancy(index: int, fq: int, k: int, exact: bool, bf16: bool) -> int:
-    """Blocks of the kernel instance for these arguments that one SM of
-    CUDA device `index` holds at once."""
+def _occupancy(index: int, fq: int, fc: int, k: int, exact: bool,
+               bf16: bool, tq: int) -> int:
+    """Blocks of the warp-list partial kernel instance for these arguments
+    that one SM of CUDA device `index` holds at once."""
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = _build.library().srt_fused_blocks_per_sm(
-            fq, k, int(exact), int(bf16), ctypes.addressof(out))
+            fq, fc, k, int(exact), int(bf16), tq, ctypes.addressof(out))
     _build.check(err, "fused_topk occupancy")
     return out.value
 
 
+@functools.lru_cache(maxsize=1024)
 def _splits(b: int, np_: int, device: torch.device, *, fq: int = 12,
-            k: int = 10, exact: bool = True,
-            bf16: bool = False) -> Tuple[int, int]:
-    """(number of catalog splits, columns per split): as many splits as let
-    the (query tiles x splits) blocks run in one wave of the card's
-    resident blocks (the H100's 132 SMs for a CPU device), each split at
-    least _MIN_SPLIT_COLS wide.  The warp lists' plan (k <= SMALL_K_MAX);
-    the large-k path's is `_large_plan`."""
+            k: int = 10, exact: bool = True, bf16: bool = False,
+            fc: int = None) -> Tuple[int, int]:
+    """(number of catalog splits, columns per split) of the warp lists:
+    as many splits as let the (query tiles of `query_tile(b)` x splits)
+    blocks run in one wave of the card's resident blocks (the H100's 132
+    SMs, _CPU_BLOCKS_PER_SM each, for a CPU device), each split at least
+    _MIN_SPLIT_COLS wide.  At B = 1 that is one block per resident slot
+    (528 on an H100 at four an SM), where the warp merge that the key merge
+    replaced held it to 128.  `fc`: the catalog's rows (fq)."""
+    tq = query_tile(b)
     if device.type == "cuda":
-        index = (device.index if device.index is not None
-                 else torch.cuda.current_device())
-        per_sm = _occupancy(index, fq, k, bool(exact), bool(bf16))
+        per_sm = _occupancy(_device_index(device), fq, fc or fq, k,
+                            bool(exact), bool(bf16), tq)
     else:
         per_sm = _CPU_BLOCKS_PER_SM
     slots = device_sms(device) * per_sm
-    tiles = -(-b // _TQ)
-    nsplit = max(1, min(slots // tiles, _MAX_SPLITS,
+    tiles = -(-b // tq)
+    nsplit = max(1, min(slots // tiles, _MAX_GRID_Y,
                         -(-np_ // _MIN_SPLIT_COLS)))
     return _split_columns(np_, nsplit)
 
 
 def _split_columns(np_: int, nsplit: int) -> Tuple[int, int]:
     """(splits, columns per split) for at most `nsplit` equal splits of
-    whole 128-column tiles."""
+    whole 128-column groups."""
     cols = -(-max(np_, 1) // nsplit)
     cols = -(-cols // _TC) * _TC
     return -(-max(np_, 1) // cols), cols
@@ -340,54 +458,58 @@ def _split_columns(np_: int, nsplit: int) -> Tuple[int, int]:
 
 def large_capacity(k: int) -> int:
     """Buffer slots per (query, split) of the large-k path: 2k rounded up
-    to a tile (the same as 2k above k = 128), and at least three tiles.
+    to a group (the same as 2k above k = 128), and at least three groups.
     A buffer is cut once it holds more than cap - 128 keys, back to k, so
-    a cut leaves room for about k more, and for a tile at k <= 128, where
-    cap = k + 128 would cut after every tile (on an H100 28.8 ms at k =
+    a cut leaves room for about k more, and for a group at k <= 128, where
+    cap = k + 128 would cut after every group (on an H100 28.8 ms at k =
     128, B = 1024, against 6.5 at k = 100).  The merge has room for its
     in-place sort of a power of two >= k."""
     return -(-max(2 * k, 3 * _TC) // _TC) * _TC
 
 
 @functools.lru_cache(maxsize=None)
-def _large_occupancy(index: int, fq: int, exact: bool, bf16: bool) -> int:
+def _large_occupancy(index: int, fq: int, fc: int, exact: bool, bf16: bool,
+                     tq: int) -> int:
     """Blocks of the large-k partial kernel instance for these arguments
     that one SM of CUDA device `index` holds at once."""
     out = ctypes.c_int(0)
     with torch.cuda.device(index):
         err = _build.library().srt_fused_large_blocks_per_sm(
-            fq, int(exact), int(bf16), ctypes.addressof(out))
+            fq, fc, int(exact), int(bf16), tq, ctypes.addressof(out))
     _build.check(err, "fused_topk_large occupancy")
     return out.value
 
 
+@functools.lru_cache(maxsize=1024)
 def _large_plan(b: int, np_: int, device: torch.device, *, fq: int, k: int,
-                exact: bool, bf16: bool) -> Tuple[int, int, int, int]:
+                exact: bool, bf16: bool,
+                fc: int = None) -> Tuple[int, int, int, int]:
     """(queries per launch, splits, columns per split, cap) of the large-k
-    path.  The grid aims at one wave of resident blocks, as `_splits`'s,
-    but the scratch a launch needs, chunk x nsplit x cap keys, stays under
-    max(SCRATCH_CAP, the buffers of four blocks per SM), and under
-    LARGE_SCRATCH_CEILING (or one block's buffers where they alone need
-    more): first by fewer splits, then by chunks of the batch.  So while
-    the batch has the query tiles, the grid holds four blocks per SM up to
-    k = 4096, and above it as many as the ceiling allows."""
+    path, on query tiles of `query_tile(b)`.  The grid aims at one wave of
+    resident blocks, as `_splits`'s, but the scratch a launch needs, chunk
+    x nsplit x cap keys, stays under max(SCRATCH_CAP, the buffers of four
+    blocks per SM), and under LARGE_SCRATCH_CEILING (or one block's
+    buffers where they alone need more): first by fewer splits, then by
+    chunks of the batch.  So while the batch has the query tiles, the grid
+    holds four blocks per SM up to k = 4096, and above it as many as the
+    ceiling allows.  `fc`: the catalog's rows (fq).  Cached per shape."""
+    tq = query_tile(b)
     if device.type == "cuda":
-        index = (device.index if device.index is not None
-                 else torch.cuda.current_device())
-        per_sm = _large_occupancy(index, fq, bool(exact), bool(bf16))
+        per_sm = _large_occupancy(_device_index(device), fq, fc or fq,
+                                  bool(exact), bool(bf16), tq)
     else:
         per_sm = _CPU_BLOCKS_PER_SM
     cap = large_capacity(k)
     sms = device_sms(device)
-    block = _TQ * cap * 8                     # one block's buffers, bytes
+    block = tq * cap * 8                      # one block's buffers, bytes
     budget = max(1, min(max(SCRATCH_CAP // block,
                             _LARGE_MIN_BLOCKS_PER_SM * sms),
                         LARGE_SCRATCH_CEILING // block))   # blocks' buffers
-    tiles = min(-(-b // _TQ), budget, 2**31 // _TQ)
+    tiles = min(-(-b // tq), budget, 2**31 // tq)
     nsplit = max(1, min(sms * per_sm // tiles, budget // tiles, _MAX_GRID_Y,
                         -(-np_ // max(_MIN_SPLIT_COLS,
                                       _LARGE_SPLIT_PER_K * k))))
-    return (min(b, tiles * _TQ), *_split_columns(np_, nsplit), cap)
+    return (min(b, tiles * tq), *_split_columns(np_, nsplit), cap)
 
 
 def _cuda_device(tensors) -> torch.device:
@@ -404,6 +526,25 @@ def _cuda_device(tensors) -> torch.device:
         raise ValueError(f"fused_topk: {features_t.shape[1]} columns exceed "
                          "int32 indices")
     return dev
+
+
+def _launch_args(queries, q_norms, features_t, norms, excl, valid, k,
+                 exact, eps):
+    """The C entry points' leading arguments, from q through eps."""
+    b, fq = queries.shape
+    fc, np_ = features_t.shape
+    return (queries.data_ptr(), q_norms.data_ptr(), features_t.data_ptr(),
+            features_t.stride(0), features_t.stride(1), norms.data_ptr(),
+            excl.data_ptr(), b, fq, fc, np_, int(valid), k, int(bool(exact)),
+            int(features_t.dtype == torch.bfloat16), ctypes.c_float(eps))
+
+
+def _on(dev: torch.device):
+    """A context that makes `dev` the current CUDA device, where it is not
+    already (the context itself costs host time on every call)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def fused_topk(
@@ -423,10 +564,17 @@ def fused_topk(
     if all(t.device.type == "cpu" for t in tensors):
         return fused_topk_plain(queries, q_norms, features_t, norms, excl,
                                 valid, k=k, exact=exact, eps=eps)
-    if k > SMALL_K_MAX:
-        return fused_topk_large(queries, q_norms, features_t, norms, excl,
-                                valid, k=k, exact=exact, eps=eps)
     dev = _cuda_device(tensors)
+    launch = _large if fused_route(k, queries.shape[0]) == "large" else _lists
+    return launch(dev, queries, q_norms, features_t, norms, excl, valid, k,
+                  exact, eps)
+
+
+def _lists(dev, queries, q_norms, features_t, norms, excl, valid, k, exact,
+           eps) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The warp lists' launch (k <= SMALL_K_MAX) on checked CUDA inputs."""
+    if k > SMALL_K_MAX:
+        raise ValueError(f"the warp lists take k <= {SMALL_K_MAX}, got {k}")
     b, fq = queries.shape
     fc, np_ = features_t.shape
     ov = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -435,17 +583,14 @@ def fused_topk(
         return ov, oi
     bf16 = features_t.dtype == torch.bfloat16
     nsplit, split_cols = _splits(b, np_, dev, fq=fq, k=k, exact=exact,
-                                 bf16=bf16)
-    pv = torch.empty((b, nsplit, k), dtype=torch.float32, device=dev)
-    pc = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+                                 bf16=bf16, fc=fc)
+    keys = torch.empty((b, nsplit, k), dtype=torch.int64, device=dev)
+    with _on(dev):
         err = _build.library().srt_fused_topk(
-            queries.data_ptr(), q_norms.data_ptr(), features_t.data_ptr(),
-            features_t.stride(0), features_t.stride(1), norms.data_ptr(),
-            excl.data_ptr(), b, fq, fc, np_, int(valid), k, int(bool(exact)),
-            int(bf16), ctypes.c_float(eps),
-            nsplit, split_cols, pv.data_ptr(),
-            pc.data_ptr(), ov.data_ptr(), oi.data_ptr(),
+            *_launch_args(queries, q_norms, features_t, norms, excl, valid,
+                          k, exact, eps),
+            nsplit, split_cols, query_tile(b), copy_width(features_t),
+            keys.data_ptr(), ov.data_ptr(), oi.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "fused_topk")
@@ -453,7 +598,7 @@ def fused_topk(
     return ov, oi
 
 
-fused_topk.launches = 0   # kernel launches (CUDA tensors only)
+fused_topk.launches = 0   # warp-list kernel launches (`_lists`; CUDA only)
 
 
 def fused_topk_large(
@@ -469,15 +614,21 @@ def fused_topk_large(
     eps: float = COSINE_EPS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """`fused_topk` through the large-k kernels at any k >= 1 (`fused_topk`
-    takes them for k > SMALL_K_MAX): the partial kernel and the merge over
-    a (chunk, nsplit, cap) key scratch (`_large_plan`), once per chunk of
-    the batch.  CPU tensors run `fused_topk_plain`."""
+    takes them where `fused_route` says "large"): the partial kernel and
+    the merge over a (chunk, nsplit, cap) key scratch (`_large_plan`),
+    once per chunk of the batch.  CPU tensors run `fused_topk_plain`."""
     _check_args(queries, q_norms, features_t, norms, excl, k, exact)
     tensors = (queries, q_norms, features_t, norms, excl)
     if all(t.device.type == "cpu" for t in tensors):
         return fused_topk_plain(queries, q_norms, features_t, norms, excl,
                                 valid, k=k, exact=exact, eps=eps)
-    dev = _cuda_device(tensors)
+    return _large(_cuda_device(tensors), queries, q_norms, features_t, norms,
+                  excl, valid, k, exact, eps)
+
+
+def _large(dev, queries, q_norms, features_t, norms, excl, valid, k, exact,
+           eps) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The large-k path's launches on checked CUDA inputs."""
     b, fq = queries.shape
     fc, np_ = features_t.shape
     ov = torch.empty((b, k), dtype=torch.float32, device=dev)
@@ -486,21 +637,22 @@ def fused_topk_large(
         return ov, oi
     bf16 = features_t.dtype == torch.bfloat16
     chunk, nsplit, split_cols, cap = _large_plan(b, np_, dev, fq=fq, k=k,
-                                                 exact=exact, bf16=bf16)
+                                                 exact=exact, bf16=bf16,
+                                                 fc=fc)
     keys = torch.empty((chunk, nsplit, cap), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
+    tq, vec = query_tile(b), copy_width(features_t)
+    args = list(_launch_args(queries, q_norms, features_t, norms, excl,
+                             valid, k, exact, eps))
+    with _on(dev):
         lib = _build.library()
         stream = torch.cuda.current_stream().cuda_stream
         for lo in range(0, b, chunk):
-            hi = min(lo + chunk, b)
+            # a chunk's rows by address, without views (host time)
+            args[0], args[1], args[6] = row_ptrs(lo, queries, q_norms, excl)
+            args[7] = min(chunk, b - lo)
             err = lib.srt_fused_topk_large(
-                queries[lo:hi].data_ptr(), q_norms[lo:hi].data_ptr(),
-                features_t.data_ptr(), features_t.stride(0),
-                features_t.stride(1), norms.data_ptr(),
-                excl[lo:hi].data_ptr(), hi - lo, fq, fc, np_, int(valid), k,
-                int(bool(exact)), int(bf16), ctypes.c_float(eps), nsplit,
-                split_cols, cap, keys.data_ptr(), ov[lo:hi].data_ptr(),
-                oi[lo:hi].data_ptr(), stream,
+                *args, nsplit, split_cols, cap, tq, vec, keys.data_ptr(),
+                *row_ptrs(lo, ov, oi), stream,
             )
             _build.check(err, "fused_topk_large")
             fused_topk_large.launches += 1

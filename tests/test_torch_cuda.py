@@ -16,7 +16,7 @@ from test_torch_fused_large_k_select import KINDS as LARGE_KINDS
 from test_torch_fused_large_k_select import large_inputs
 from test_torch_fused_select import tie_inputs
 
-from spotify_recommender_tpu_torch.core.config import RetrievalConfig
+from spotify_recommender_tpu_torch.core.config import COSINE_EPS, RetrievalConfig
 from spotify_recommender_tpu_torch.experiments import (
     kernel_ablation_r2,
     kernel_ablation_r2b,
@@ -26,14 +26,19 @@ from spotify_recommender_tpu_torch.experiments import (
 )
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.cuda import ablation, proto_scans
+from spotify_recommender_tpu_torch.ops.cuda import _build
 from spotify_recommender_tpu_torch.ops.cuda.fused import (
     LARGE_SCRATCH_CEILING,
     SMALL_K_MAX,
     _large_plan,
     _splits,
+    copy_width,
+    fused_route,
     fused_topk,
     fused_topk_large,
     fused_topk_plain,
+    query_tile,
+    tile,
 )
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import scan_v2, scan_v2_plain
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import (
@@ -543,10 +548,16 @@ def test_escalation_rescans_at_depth_6_on_card(cuda):
     assert i[0].tolist() == [7 + r * w for r in range(10)]
 
 
+def _routed_counter(k, b):
+    """The wrapper whose count a `fused_topk` call at (k, B) moves: the
+    warp lists' or the large-k path's (`fused_route`)."""
+    return fused_topk if fused_route(k, b) == "lists" else fused_topk_large
+
+
 def _fused_inputs(cuda, n, b, seed, data="random", k=10):
     """Random rows with a zero-norm row and a duplicate, or a tie-heavy
     catalog of test_torch_fused_select.tie_inputs (its edges at this
-    card's catalog splits for k)."""
+    card's catalog splits on the path `fused_route` picks for (k, B))."""
     rng = np.random.default_rng(seed)
     if data == "random":
         feats = rng.random((n, 12), dtype=np.float32)
@@ -556,8 +567,11 @@ def _fused_inputs(cuda, n, b, seed, data="random", k=10):
         q = feats[rows] + 0.01 * rng.standard_normal((b, 12)).astype(np.float32)
         excl = np.where(np.arange(b) % 3 == 0, -1, rows)
     else:
-        edges = range(0, n, _splits(b, n, cuda, k=k)[1])
-        feats, q, excl = tie_inputs(data, n, b, seed, edges=edges)
+        cols = (_splits(b, n, cuda, k=k)[1] if fused_route(k, b) == "lists"
+                else _large_plan(b, n, cuda, fq=12, k=k, exact=True,
+                                 bf16=False)[2])
+        feats, q, excl = tie_inputs(data, n, b, seed,
+                                    edges=range(0, n, cols))
     f = torch.from_numpy(feats).to(cuda)
     qt = torch.from_numpy(q).to(cuda)
     return f, qt, torch.from_numpy(excl).to(cuda)
@@ -587,10 +601,11 @@ def test_fused_topk_bitwise_equals_plain(cuda, exact, n, b, k, layout, data):
         q = q / qn.clamp_min(1e-30)[:, None]
     ft = f.t().contiguous() if layout == "transposed" else f.t()
     valid = n - 7                                   # the last 7 are padding
-    before = fused_topk.launches
+    counter = _routed_counter(k, b)
+    before = counter.launches
     ov, oi = fused_topk(q, qn, ft, norms, excl, valid, k=k, exact=exact)
     torch.cuda.synchronize()
-    assert fused_topk.launches == before + 1
+    assert counter.launches == before + 1
     pv, pi = fused_topk_plain(q, qn, ft, norms, excl, valid, k=k, exact=exact)
     # the plain version rounds each multiply and add as the kernel does
     assert torch.equal(oi, pi)
@@ -749,11 +764,12 @@ def test_fused_topk_bf16_bitwise_equals_plain(cuda, dtype, n, b, k, data):
     fr = FusedRetriever(f.cpu().numpy(), None,
                         RetrievalConfig(dtype=dtype, exact_scores=False), cuda)
     valid = n - 7
-    before = fused_topk.launches
+    counter = _routed_counter(k, b)
+    before = counter.launches
     ov, oi = prepare_and_call(q, excl, fr.features_t, fr.norms, valid, k=k,
                               eps=1e-8, exact=False, dtype=dtype)
     torch.cuda.synchronize()
-    assert fused_topk.launches == before + 1
+    assert counter.launches == before + 1
     qn = similarity.row_norms(q)
     qu = q / qn.clamp_min(1e-30)[:, None]
     if dtype == "bfloat16":
@@ -767,6 +783,156 @@ def test_fused_topk_bf16_bitwise_equals_plain(cuda, dtype, n, b, k, data):
     assert torch.equal(oi, pi)
     assert torch.equal(ov, pv)
     assert (oi < valid).all()
+
+
+# ---- kernel 3's walk (cp.async-staged chunks of U groups), both paths,
+# every instance and query tile, every layout the callers pass
+
+WALK_N = 20011             # rows: a row stride not a multiple of 16 bytes
+
+
+def _walk_operands(cuda, f, q, instance, layout):
+    """(queries, q_norms, features_t, norms) of an instance in a layout:
+    "transposed" (contiguous (Fc, N)), "rows_odd" (a row-major window from
+    row 1, read through `.t()`), "slice" (columns 3.. of a wider catalog:
+    a base off the 16-byte grid), "planes4" (bf16x2 as [hi; lo; hi; lo],
+    Fc = Fq)."""
+    n = f.shape[0]
+    if layout == "slice":
+        wide = torch.cat([f[:3], f], dim=0)
+        qq, qn, ft, norms = _instance_operands(cuda, wide, q, instance)
+        return qq, qn, ft[:, 3:], norms[3:].contiguous()
+    qq, qn, ft, norms = _instance_operands(cuda, f, q, instance)
+    if layout == "rows_odd":
+        big = torch.cat([ft.t()[:1], ft.t()], dim=0)   # row-major (n + 1, Fc)
+        return qq, qn, big[1:].t(), norms
+    if layout == "planes4":
+        return qq, qn, torch.cat([ft, ft], dim=0), norms
+    assert layout == "transposed" and ft.shape[1] == n
+    return qq, qn, ft, norms
+
+
+def _walk_held_to_plain(args, k, exact, path):
+    """One path of kernel 3 at (k, B) on the card, its own launches counted
+    (one per batch chunk for the large-k path), against the plain version:
+    indices, values and the sign of a zero bitwise."""
+    fn = fused_topk_large if path == "large" else _lists_only
+    counter = fused_topk_large if path == "large" else fused_topk
+    before = counter.launches
+    ov, oi = fn(*args, k=k, exact=exact)
+    torch.cuda.synchronize()
+    assert counter.launches > before
+    pv, pi = fused_topk_plain(*args, k=k, exact=exact)
+    assert torch.equal(oi, pi), (oi != pi).sum().item()
+    assert torch.equal(ov, pv)
+    assert torch.equal(torch.signbit(ov), torch.signbit(pv))
+    assert torch.equal(oi == -1, ov == float("-inf"))
+
+
+def _lists_only(*args, k, exact):
+    """Kernel 3 through the warp lists whatever the route says."""
+    from spotify_recommender_tpu_torch.ops.cuda import fused
+    return fused._lists(args[0].device, *args, k, exact, COSINE_EPS)
+
+
+WALK_BS = [1, 3, 4, 5, 17, 131, 1024]
+WALK_KS = [1, 10, 32, 33, 64, 65, 128, 129, 1000]
+
+
+@pytest.mark.parametrize("b", WALK_BS)
+@pytest.mark.parametrize("k", WALK_KS)
+@pytest.mark.parametrize("instance",
+                         ["exact", "prenormalized", "bfloat16", "bfloat16x2"])
+def test_fused_walk_every_instance_bitwise_equals_plain(cuda, instance, k, b):
+    """Both paths (the warp lists at k <= SMALL_K_MAX), every storage and
+    both query tiles (B <= SMALL_BATCH: 4 queries; else 16, B = 131 a
+    ragged last tile), bitwise the plain version
+    on the transposed layout, whose row stride (20011 columns) takes the
+    8- or 4-byte copies (fp32) or one value a copy (bf16)."""
+    f, q, excl = _fused_inputs(cuda, WALK_N, b, seed=k + b)
+    args = (*_walk_operands(cuda, f, q, instance, "transposed"), excl,
+            WALK_N - 7)
+    for path in (("lists", "large") if k <= SMALL_K_MAX else ("large",)):
+        _walk_held_to_plain(args, k, instance == "exact", path)
+
+
+@pytest.mark.parametrize("b", [1, 5, 17, 131])
+@pytest.mark.parametrize("k", [10, 65, 1000])
+@pytest.mark.parametrize("instance,layout", [
+    ("exact", "rows_odd"), ("prenormalized", "rows_odd"),
+    ("bfloat16", "rows_odd"), ("exact", "slice"), ("bfloat16", "slice"),
+    ("bfloat16x2", "slice"), ("bfloat16x2", "planes4"),
+])
+def test_fused_walk_layouts_bitwise_equal_plain(cuda, instance, layout, k, b):
+    """A row-major window from an odd row through `.t()` (one value a
+    copy), a column slice off the 16-byte grid, the 4-plane bf16x2 layout
+    (48 bf16 rows: two row blocks a chunk): both paths bitwise plain."""
+    f, q, excl = _fused_inputs(cuda, WALK_N, b, seed=3 * k + b)
+    ops = _walk_operands(cuda, f, q, instance, layout)
+    assert layout == "transposed" or copy_width(ops[2]) < 16
+    args = (*ops, excl, WALK_N - 7)
+    for path in (("lists", "large") if k <= SMALL_K_MAX else ("large",)):
+        _walk_held_to_plain(args, k, instance == "exact", path)
+
+
+@pytest.mark.parametrize("b", [1, 17, 131])
+@pytest.mark.parametrize("f_dim,instance", [(64, "exact"), (64, "bfloat16"),
+                                            (32, "bfloat16x2")])
+def test_fused_walk_wide_rows_bitwise_equal_plain(cuda, instance, f_dim, b):
+    """Rows past one stage: F = 64 fp32 (five row blocks of 13) and bf16,
+    bf16x2 at F = 32 (64 planes' rows in three blocks, each walked once
+    per half of the 128 query values)."""
+    rng = np.random.default_rng(f_dim + b)
+    n = 9001
+    f = torch.from_numpy(rng.random((n, f_dim), dtype=np.float32)).to(cuda)
+    rows = rng.integers(0, n, b)
+    q = f[torch.from_numpy(rows).to(cuda)]
+    excl = torch.from_numpy(rows).to(cuda)
+    args = (*_instance_operands(cuda, f, q, instance), excl, n - 3)
+    for k in (10, 129):
+        for path in (("lists", "large") if k <= SMALL_K_MAX else ("large",)):
+            _walk_held_to_plain(args, k, instance == "exact", path)
+
+
+@pytest.mark.parametrize("b", [1, 4, 17, 131])
+@pytest.mark.parametrize("k", [1, 33, 128, 1000])
+@pytest.mark.parametrize("data", ["constant", "duplicates", "zero_norm"])
+def test_fused_walk_ties_across_split_and_chunk_edges(cuda, data, k, b):
+    """Tie-heavy catalogs with the queries' rows on both sides of every
+    split edge of both plans and of every 32-column edge (so every chunk
+    and group edge): both paths bitwise plain, exact and bf16x2."""
+    edges = {*range(0, WALK_N, _splits(b, WALK_N, cuda,
+                                       k=min(k, SMALL_K_MAX))[1]),
+             *range(0, WALK_N, _large_plan(b, WALK_N, cuda, fq=12, k=k,
+                                           exact=True, bf16=False)[2])}
+    feats, q, excl = tie_inputs(data, WALK_N, b, seed=k + b,
+                                edges=sorted(edges))
+    f, q, excl = (torch.from_numpy(a).to(cuda) for a in (feats, q, excl))
+    for instance in ("exact", "bfloat16x2"):
+        args = (*_instance_operands(cuda, f, q, instance), excl, WALK_N - 7)
+        for path in (("lists", "large") if k <= SMALL_K_MAX else ("large",)):
+            _walk_held_to_plain(args, k, instance == "exact", path)
+
+
+def test_fused_tiling_matches_the_wrapper_and_b1_fills_the_card(cuda):
+    """The wrapper's mirror of the kernel's tiling (`tile`) is the
+    library's (`srt_fused_tiling`), and B = 1 launches at least one block
+    per SM on both paths (the query tile of 4)."""
+    import ctypes
+    lib = _build.library()
+    for large in (0, 1):
+        for k in ((10, 1000) if large else (1, 32, 33, SMALL_K_MAX)):
+            for tq in (4, 16):
+                out = (ctypes.c_int * 4)()
+                _build.check(lib.srt_fused_tiling(large, k, tq, 12, 0,
+                                                  ctypes.addressof(out)),
+                             "srt_fused_tiling")
+                assert out[0] == tile(bool(large), k, tq), (large, k, tq)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert query_tile(1) == 4
+    assert _splits(1, 10**6, cuda)[0] >= sms
+    assert _large_plan(1, 10**6, cuda, fq=12, k=10, exact=True,
+                       bf16=False)[1] >= sms
 
 
 def test_prefilter_recall_on_card(cuda):

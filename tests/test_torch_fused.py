@@ -208,10 +208,10 @@ class TestRetrieverState:
             JFusedRetriever(feats, config=JConfig(dtype=dtype))
 
     def test_k_above_the_kernel_limit_raises(self):
-        """k above the warp lists' SMALL_K_MAX (the old limit, 128) no
-        longer raises: kernel 3 takes it on its large-k path, and the
-        answer is the JAX kernel's at k = 129 and past the catalog's 300
-        rows (unfilled slots (-inf, -1)).  Only k < 1 raises."""
+        """k above the warp lists' SMALL_K_MAX no longer raises: kernel 3
+        takes it on its large-k path, and the answer is the JAX kernel's
+        at SMALL_K_MAX + 1 and past the catalog's 300 rows (unfilled
+        slots (-inf, -1)).  Only k < 1 raises."""
         feats = random_features(300, seed=41)
         fr = FusedRetriever(feats, None, None, CPU)
         jfr = JFusedRetriever(feats, config=JConfig(**JCFG), interpret=True)

@@ -357,11 +357,11 @@ def test_sharded_catalog_kernel3_backend_at_large_k(request, k):
 
 
 def test_the_large_k_path_starts_right_above_the_warp_lists():
-    """k = SMALL_K_MAX and SMALL_K_MAX + 1 give the same first 128 rows:
-    the two paths of kernel 3 agree where they meet."""
+    """k = SMALL_K_MAX and SMALL_K_MAX + 1 give the same first SMALL_K_MAX
+    rows: the two paths of kernel 3 agree where they meet."""
     feats, q, excl = make_inputs(5, seed=59)
     fr = FusedRetriever(feats, None, None, CPU)
-    s128, i128 = fr(q, SMALL_K_MAX, excl)
-    s129, i129 = fr(q, SMALL_K_MAX + 1, excl)
-    assert torch.equal(i129[:, :SMALL_K_MAX], i128)
-    assert torch.equal(s129[:, :SMALL_K_MAX], s128)
+    s_top, i_top = fr(q, SMALL_K_MAX, excl)
+    s_next, i_next = fr(q, SMALL_K_MAX + 1, excl)
+    assert torch.equal(i_next[:, :SMALL_K_MAX], i_top)
+    assert torch.equal(s_next[:, :SMALL_K_MAX], s_top)
