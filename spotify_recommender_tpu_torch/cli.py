@@ -451,7 +451,8 @@ def cmd_evaluate_two_tower(args, device: str) -> int:
 def cmd_serve(args, device: str) -> int:
     from spotify_recommender_tpu_torch.serve.server import serve
 
-    return serve(args.catalog, host=args.host, port=args.port, device=device)
+    return serve(args.catalog, host=args.host, port=args.port, device=device,
+                 record_spans=args.record_spans)
 
 
 def cmd_benchmark(args, device: str) -> int:
@@ -565,6 +566,9 @@ def build_parser() -> argparse.ArgumentParser:
     ss.add_argument("--catalog", default=DEFAULT_CATALOG)
     ss.add_argument("--host", default="127.0.0.1")
     ss.add_argument("--port", type=int, default=8000)
+    ss.add_argument("--record-spans", action="store_true",
+                    help="time each batch's phases (core/timing.Spans); "
+                         "GET /metrics then adds their totals as 'spans'")
 
     sm = sub.add_parser("train-mf", help="ALS/SGD matrix factorization")
     sm.add_argument("interactions", help="CSV/npz of (user, item, count)")

@@ -22,7 +22,8 @@ The port of the JAX package's `core/profiling.py`, on `torch.profiler`:
   trace that requested CUDA activity and recorded no device event logs an
   error;
 - `annotate(name)` is a named span in that timeline
-  (`torch.profiler.record_function`);
+  (`torch.profiler.record_function`), opened by `core/timing.Spans` for
+  its phases while a session collects (`collecting`);
 - `timed(fn, ...)`: the median wall-clock seconds of calls fenced by
   `torch.cuda.synchronize` on a card (PyTorch returns before the device
   finishes, so an unfenced host clock measures the enqueue).
@@ -99,6 +100,13 @@ def check_device_events(prof: torch.profiler.profile, where: str) -> int:
 def annotate(name: str):
     """Named span that shows up in the profiler's timeline."""
     return torch.profiler.record_function(name)
+
+
+def collecting() -> bool:
+    """Whether a profiler session is recording in this process: a range of
+    `annotate` costs ~10 us a call even with none open, so the span
+    recorder (`core/timing.Spans`) opens one only while this holds."""
+    return torch.autograd.profiler._is_profiler_enabled
 
 
 def _warm_up() -> None:

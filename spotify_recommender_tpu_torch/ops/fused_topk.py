@@ -72,6 +72,7 @@ import torch
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.core.device import resolve_device
 from spotify_recommender_tpu_torch.core.logging import get_logger
+from spotify_recommender_tpu_torch.core.timing import Spans, span
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.cuda.fused import fused_topk
 from spotify_recommender_tpu_torch.ops.cuda.scan_v2 import scan_v2
@@ -684,6 +685,9 @@ class CertifiedRetriever:
         self.escalations = 0   # queries rescanned at the escalation depth
         # the counters' lock: a service calls one retriever from threads
         self._count_lock = threading.Lock()
+        # the span recorder (core/timing.Spans), None while recording is
+        # off: `Retriever.record_spans` sets it
+        self.spans: Optional[Spans] = None
 
     def _warn_large_k(self, k: int) -> None:
         if not self._large_k_warned:
@@ -731,64 +735,92 @@ class CertifiedRetriever:
         shard before it finishes any, so the shards of distinct cards
         overlap, and hands each shard the (qn, q2) of `prepare_queries`
         that it made once for the shard's device and queries
-        (`prepared`)."""
-        queries, excl = query_inputs(queries, exclude_rows, self.device,
-                                     self.feature_dim)
-        dl = self.layout
-        if k > dl.depth * dl.w:
-            self._warn_large_k(k)
-            return CertifiedBatch(queries, excl, k, None, None,
-                                  *self._oracle(queries, k, excl), None)
-        c = self._topc(k)
-        qn, q2 = prepare_queries(queries) if prepared is None else prepared
-        if dl.scan == "v2":
-            a_s, cand, cb = scan_v2(q2, qn, dl.ft, dl.nrm_row, excl,
-                                    self.num_items, w=dl.w,
-                                    eps=self.config.eps, topc=c)
-        else:
-            a_s, cand, cb = scan_v3(q2, dl.ft, w=dl.w, depth=dl.depth, topc=c,
-                                    ncols=self.num_items)
-        top_s, top_i, ok = rerank_certify(
-            queries, qn, a_s, cand, cb, excl, dl, self.num_items,
-            k=k, eps=self.config.eps, ceps=self._ceps,
-        )
-        return CertifiedBatch(queries, excl, k, qn, q2, top_s, top_i, ok)
+        (`prepared`).  With `spans` set, the phases are spans of
+        "cert.start" (see `finish`)."""
+        sp = self.spans
+        with span(sp, "cert.start"):
+            with span(sp, "cert.inputs", phase=True):
+                queries, excl = query_inputs(queries, exclude_rows,
+                                             self.device, self.feature_dim)
+            dl = self.layout
+            if k > dl.depth * dl.w:
+                with span(sp, "cert.oracle", phase=True):
+                    self._warn_large_k(k)
+                    return CertifiedBatch(queries, excl, k, None, None,
+                                          *self._oracle(queries, k, excl),
+                                          None)
+            with span(sp, "cert.prologue", phase=True):
+                c = self._topc(k)
+                qn, q2 = (prepare_queries(queries) if prepared is None
+                          else prepared)
+            with span(sp, "cert.scan", phase=True):
+                if dl.scan == "v2":
+                    a_s, cand, cb = scan_v2(q2, qn, dl.ft, dl.nrm_row, excl,
+                                            self.num_items, w=dl.w,
+                                            eps=self.config.eps, topc=c)
+                else:
+                    a_s, cand, cb = scan_v3(q2, dl.ft, w=dl.w,
+                                            depth=dl.depth, topc=c,
+                                            ncols=self.num_items)
+            with span(sp, "cert.rerank", phase=True):
+                top_s, top_i, ok = rerank_certify(
+                    queries, qn, a_s, cand, cb, excl, dl, self.num_items,
+                    k=k, eps=self.config.eps, ceps=self._ceps,
+                )
+                return CertifiedBatch(queries, excl, k, qn, q2, top_s, top_i,
+                                      ok)
 
     def finish(self, batch: "CertifiedBatch") -> Tuple[torch.Tensor, torch.Tensor]:
         """The started batch's answer: its failures read on the host (the
         batch's sync), the first <= 32 rescanned at the escalation depth
-        (v3), and what still fails served by the oracle."""
-        top_s, top_i, ok = batch.top_s, batch.top_i, batch.ok
-        if ok is None:                  # k beyond the scan: the oracle's
+        (v3), and what still fails served by the oracle.
+
+        With `spans` set (`Retriever.record_spans`), each phase is a span,
+        and together they cover the two calls: "cert.start" holds
+        "cert.inputs" (queries and exclusions onto the device),
+        "cert.prologue" (norms and kernel 2), "cert.scan", "cert.rerank",
+        or "cert.oracle" alone for k > depth x W; "cert.finish" holds
+        "cert.sync" (each host read of the failures, the wait for the
+        device's queued work included), "cert.rescan" and
+        "cert.fallback".  No span adds a sync or a launch."""
+        sp = self.spans
+        with span(sp, "cert.finish"):
+            top_s, top_i, ok = batch.top_s, batch.top_i, batch.ok
+            if ok is None:                  # k beyond the scan: the oracle's
+                return top_s, top_i
+            queries, excl, k, qn, q2 = (batch.queries, batch.excl, batch.k,
+                                        batch.qn, batch.q2)
+            dl, eps, c = self.layout, self.config.eps, self._topc(k)
+            with span(sp, "cert.sync", phase=True):
+                fail = torch.nonzero(~ok)[:, 0]   # the batch's host sync
+            if self._esc and fail.numel():
+                # rescan the first <= 32 failing queries once at the deeper
+                # depth; splice back only the rows that are now certified
+                with span(sp, "cert.rescan", phase=True):
+                    eidx = fail[:32]
+                    a2, c2, b2 = scan_v3(q2[eidx], dl.ft, w=dl.w,
+                                         depth=self._esc, topc=c,
+                                         ncols=self.num_items)
+                    ts2, ti2, ok2 = rerank_certify(
+                        queries[eidx], qn[eidx], a2, c2, b2, excl[eidx], dl,
+                        self.num_items, k=k, eps=eps, ceps=self._ceps,
+                    )
+                    with self._count_lock:
+                        self.escalations += eidx.numel()
+                    upd = eidx[ok2]
+                    top_s[upd] = ts2[ok2]
+                    top_i[upd] = ti2[ok2]
+                    ok[upd] = True
+                with span(sp, "cert.sync", phase=True):
+                    fail = torch.nonzero(~ok)[:, 0]
+            if fail.numel():
+                with span(sp, "cert.fallback", phase=True):
+                    with self._count_lock:
+                        self.fallbacks += fail.numel()
+                    fs, fi = self._oracle(queries[fail], k, excl[fail])
+                    top_s[fail] = fs
+                    top_i[fail] = fi
             return top_s, top_i
-        queries, excl, k, qn, q2 = (batch.queries, batch.excl, batch.k,
-                                    batch.qn, batch.q2)
-        dl, eps, c = self.layout, self.config.eps, self._topc(k)
-        fail = torch.nonzero(~ok)[:, 0]           # the batch's host sync
-        if self._esc and fail.numel():
-            # rescan the first <= 32 failing queries once at the deeper
-            # depth; splice back only the rows that are now certified
-            eidx = fail[:32]
-            a2, c2, b2 = scan_v3(q2[eidx], dl.ft, w=dl.w, depth=self._esc,
-                                 topc=c, ncols=self.num_items)
-            ts2, ti2, ok2 = rerank_certify(
-                queries[eidx], qn[eidx], a2, c2, b2, excl[eidx], dl,
-                self.num_items, k=k, eps=eps, ceps=self._ceps,
-            )
-            with self._count_lock:
-                self.escalations += eidx.numel()
-            upd = eidx[ok2]
-            top_s[upd] = ts2[ok2]
-            top_i[upd] = ti2[ok2]
-            ok[upd] = True
-            fail = torch.nonzero(~ok)[:, 0]
-        if fail.numel():
-            with self._count_lock:
-                self.fallbacks += fail.numel()
-            fs, fi = self._oracle(queries[fail], k, excl[fail])
-            top_s[fail] = fs
-            top_i[fail] = fi
-        return top_s, top_i
 
     def retrieve_sync(
         self, queries, k: int, exclude_rows=None
@@ -796,13 +828,6 @@ class CertifiedRetriever:
         """`__call__` with the results on the host as numpy arrays."""
         s, i = self(queries, k, exclude_rows)
         return s.cpu().numpy(), i.cpu().numpy()
-
-    def verify_no_overflow(self) -> int:
-        """Always 0, kept for API parity with the JAX package: there the
-        in-jit oracle fallback had a fixed capacity that could overflow
-        under deferred syncs; here every failing query goes to the oracle
-        within the call that found it."""
-        return 0
 
 
 def approx_retrieve(

@@ -48,6 +48,7 @@ import torch
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.core.device import resolve_device
 from spotify_recommender_tpu_torch.core.logging import get_logger
+from spotify_recommender_tpu_torch.core.timing import Spans, span
 from spotify_recommender_tpu_torch.data.catalog import Catalog
 from spotify_recommender_tpu_torch.ops import similarity
 from spotify_recommender_tpu_torch.ops.fused_topk import (
@@ -130,6 +131,8 @@ class Retriever:
             self._norms = torch.from_numpy(
                 np.asarray(catalog.norms, np.float32)
             ).to(self.device)
+        # the span recorder, None while recording is off (`record_spans`)
+        self.spans: Optional[Spans] = None
         log.info(
             "retriever ready: %d items, backend=%s, device=%s, mesh=%s",
             len(catalog), self._backend, self.device,
@@ -139,6 +142,22 @@ class Retriever:
     @property
     def backend(self) -> str:
         return self._backend
+
+    def record_spans(self, spans: Optional[Spans] = None) -> Spans:
+        """Turn span recording on (idempotent) and return the recorder,
+        which `spans` then holds: `spans` if given (a service shares one
+        with its coalescer), else the one already on, else a new
+        `core/timing.Spans`.  Each batch is then an "entry.batch" span (the
+        root, unless the caller's span is open on this thread), with the
+        certified tier's phases (`CertifiedRetriever.finish`) and, in
+        `retrieve_host`, "entry.to_host" (the answers' copies to the host
+        and the wait for the device's queued work) under it."""
+        if spans is None:
+            spans = self.spans or Spans()
+        self.spans = spans
+        if self.certified is not None:
+            self.certified.spans = spans
+        return spans
 
     def retrieve(
         self,
@@ -153,6 +172,10 @@ class Retriever:
         `exclude_rows` masks one catalog row per query (self-exclusion);
         -1 disables masking for that query.
         """
+        with span(self.spans, "entry.batch"):
+            return self._retrieve(queries, k, exclude_rows)
+
+    def _retrieve(self, queries, k, exclude_rows):
         k = self.config.top_k if k is None else k
         if self._backend == "sharded":
             return self.sharded.retrieve(queries, k, exclude_rows)
@@ -176,8 +199,11 @@ class Retriever:
         self, queries, k: Optional[int] = None, exclude_rows=None
     ) -> Tuple[np.ndarray, np.ndarray]:
         """`retrieve` with the results on the host as numpy arrays."""
-        s, i = self.retrieve(queries, k=k, exclude_rows=exclude_rows)
-        return s.cpu().numpy(), i.cpu().numpy()
+        sp = self.spans
+        with span(sp, "entry.batch"):
+            s, i = self._retrieve(queries, k, exclude_rows)
+            with span(sp, "entry.to_host", phase=True):
+                return s.cpu().numpy(), i.cpu().numpy()
 
     # ----------------------------------------------------- reference API
 

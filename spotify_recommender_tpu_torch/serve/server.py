@@ -7,6 +7,8 @@ serves queries over HTTP with no per-request setup:
 
   GET  /healthz                          → {"status": "ok", ...}
   GET  /metrics                          → counters, latency percentiles
+                                           (and span totals, `spans`, when
+                                           the service records them)
   GET  /recommend?song=<name>&n=10       → ranked results by name
   GET  /recommend?id=<track_id>&n=10     → ranked results by track id
   GET  /song/<row>                       → one catalog entry
@@ -48,6 +50,7 @@ import torch
 
 from spotify_recommender_tpu_torch.core.config import RetrievalConfig
 from spotify_recommender_tpu_torch.core.logging import get_logger
+from spotify_recommender_tpu_torch.core.timing import Spans, span
 from spotify_recommender_tpu_torch.data.catalog import load_catalog
 from spotify_recommender_tpu_torch.retrieval.retriever import Retriever
 
@@ -71,6 +74,12 @@ class BatchCoalescer:
     batch; the dispatcher waits `window_ms` after the first enqueue so
     concurrent requests coalesce, then dispatches up to `max_batch` at
     once.  Per-request k values are served from one top-max(k) retrieval.
+
+    With a span recorder (`spans`), each dispatch records, under one batch
+    id: "serve.window" (the coalescing sleep), "serve.queue" per request
+    (from its enqueue to the dispatcher taking it up), "serve.gather" (the
+    stack of the batch), "serve.batch" (the retrieval, under which the
+    retriever's own spans nest) and "serve.deliver" (the slots set).
     """
 
     def __init__(
@@ -79,8 +88,10 @@ class BatchCoalescer:
         max_batch: int = 256,
         window_ms: float = 2.0,
         max_queue: int = 2048,
+        spans: Optional[Spans] = None,
     ) -> None:
         self._retrieve = retrieve_fn
+        self.spans = spans
         self.max_batch = max_batch
         self.window_s = window_ms / 1e3
         # backpressure: a burst past device throughput is shed with 429s
@@ -116,7 +127,8 @@ class BatchCoalescer:
                 raise ServiceOverloaded(
                     f"pending queue full ({self.max_queue} requests)"
                 )
-            self._pending.append((query, exclude_row, k, slot, ev))
+            self._pending.append((query, exclude_row, k, slot, ev,
+                                  time.perf_counter_ns()))
             self._cv.notify()
         if not ev.wait(timeout=timeout_s):
             raise TimeoutError(
@@ -133,26 +145,37 @@ class BatchCoalescer:
                     self._cv.wait()
                 if self._stop and not self._pending:
                     return
+            sp = self.spans
+            bid = None if sp is None else sp.new_batch()
             # coalescing window: let concurrent requests pile up
-            if self.window_s > 0:
-                time.sleep(self.window_s)
+            with span(sp, "serve.window", True, bid):
+                if self.window_s > 0:
+                    time.sleep(self.window_s)
             with self._cv:
                 batch = self._pending[: self.max_batch]
                 del self._pending[: self.max_batch]
             if not batch:
                 continue
-            queries = np.stack([np.asarray(e[0], np.float32) for e in batch])
-            excl = np.asarray([e[1] for e in batch], np.int64)
-            kmax = max(e[2] for e in batch)
+            if sp is not None:
+                taken = time.perf_counter_ns()
+                for e in batch:
+                    sp.record("serve.queue", e[5], taken, batch=bid)
+            with span(sp, "serve.gather", True, bid):
+                queries = np.stack([np.asarray(e[0], np.float32)
+                                    for e in batch])
+                excl = np.asarray([e[1] for e in batch], np.int64)
+                kmax = max(e[2] for e in batch)
             try:
-                scores, rows = self._retrieve(queries, kmax, excl)
-                for i, (_, _, k, slot, ev) in enumerate(batch):
-                    slot["scores"] = scores[i, :k]
-                    slot["rows"] = rows[i, :k]
-                    ev.set()
+                with span(sp, "serve.batch", batch=bid):
+                    scores, rows = self._retrieve(queries, kmax, excl)
+                with span(sp, "serve.deliver", True, bid):
+                    for i, (_, _, k, slot, ev, _) in enumerate(batch):
+                        slot["scores"] = scores[i, :k]
+                        slot["rows"] = rows[i, :k]
+                        ev.set()
             except Exception as e:  # deliver the failure to every waiter
                 log.exception("coalesced batch of %d failed", len(batch))
-                for _, _, _, slot, ev in batch:
+                for _, _, _, slot, ev, _ in batch:
                     slot["error"] = e
                     ev.set()
             self.stats["batches"] += 1
@@ -172,7 +195,11 @@ class RecommenderService:
     """Catalog + retriever + coalescer: the request-handling core, apart
     from HTTP for testability.  Retrieval runs on `device` (the card
     unless the caller names the CPU).  The lock guards only the stats and
-    catalog swaps, not the retriever (see the module docstring)."""
+    catalog swaps, not the retriever (see the module docstring).
+
+    `record_spans=True` gives the coalescer and the retriever (a reloaded
+    one too) one span recorder, `spans` (core/timing.Spans), and
+    `/metrics` its totals; off by default."""
 
     def __init__(
         self,
@@ -182,10 +209,13 @@ class RecommenderService:
         max_batch: int = 256,
         max_queue: int = 2048,
         device: Union[str, torch.device] = "cuda",
+        record_spans: bool = False,
     ):
         self._config = config
         self._device = device
         self.retriever = Retriever(catalog, config, device)
+        self.spans: Optional[Spans] = (
+            self.retriever.record_spans() if record_spans else None)
         self._lock = threading.Lock()
         self._stats = {"requests": 0, "errors": 0, "total_latency_s": 0.0}
         # bounded latency ring for p50/p99 (last 8192 requests)
@@ -196,6 +226,7 @@ class RecommenderService:
             max_batch=max_batch,
             window_ms=coalesce_window_ms,
             max_queue=max_queue,
+            spans=self.spans,
         )
 
     def warmup(self, k: int = 10, max_batch: Optional[int] = None) -> float:
@@ -277,6 +308,12 @@ class RecommenderService:
             # certified tier observability: how many queries needed the
             # oracle fallback (provably-ambiguous near-ties)
             out["certificate_fallbacks"] = retriever.certified.fallbacks
+        if self.spans is not None:
+            out["spans"] = {
+                name: {"count": t["count"], "ms": round(1e3 * t["s"], 3),
+                       "self_ms": round(1e3 * t["self_s"], 3)}
+                for name, t in self.spans.totals().items()
+            }
         return out
 
     def recommend(self, query: str, by_id: bool, k: int) -> dict:
@@ -351,6 +388,8 @@ class RecommenderService:
             new_retriever = Retriever(cat, self._config, self._device)
         except Exception as e:
             return {"error": f"reload failed: {e}", "status": 400}
+        if self.spans is not None:
+            new_retriever.record_spans(self.spans)
         with self._lock:
             self.retriever = new_retriever
         log.info("catalog hot-reloaded: %s (%d items)", catalog_path, len(cat))
@@ -468,9 +507,11 @@ def make_server(
     config: Optional[RetrievalConfig] = None,
     coalesce_window_ms: float = 2.0,
     device: Union[str, torch.device] = "cuda",
+    record_spans: bool = False,
 ) -> ThreadingHTTPServer:
     service = RecommenderService(
-        catalog, config, coalesce_window_ms=coalesce_window_ms, device=device
+        catalog, config, coalesce_window_ms=coalesce_window_ms, device=device,
+        record_spans=record_spans,
     )
     handler = _make_handler(service)
     srv = ThreadingHTTPServer((host, port), handler)
@@ -482,9 +523,11 @@ def make_server(
 def serve(
     catalog_path: str, host: str = "127.0.0.1", port: int = 8000,
     device: Union[str, torch.device] = "cuda",
+    record_spans: bool = False,
 ) -> int:
     cat = load_catalog(catalog_path)
-    srv = make_server(cat, host, port, device=device)
+    srv = make_server(cat, host, port, device=device,
+                      record_spans=record_spans)
     try:
         dt = srv.server_service.warmup()  # type: ignore[attr-defined]
         log.info("serving %d items on http://%s:%d (warmup %.1f s)",

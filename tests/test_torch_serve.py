@@ -571,4 +571,5 @@ class TestPortBackends:
                        "--host", "0.0.0.0", "--port", "9123"])
         assert rc == 0
         assert calls == [(("c.npz",), {"host": "0.0.0.0", "port": 9123,
-                                       "device": "cpu"})]
+                                       "device": "cpu",
+                                       "record_spans": False})]
