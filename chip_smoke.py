@@ -16,7 +16,12 @@ its plain torch version on the card, runs the reference-style CLI on a
   launch per batch) at B = 1024 and B = 1 against its plain version, its
   host cost per call, and the batch and B = 1 with it against the four
   ops it replaced, in alternating pairs; kernel 1 at the batch's depth-2 scan, the
-  32-query depth-3 rescan and B = 1;
+  32-query depth-3 rescan and B = 1; kernel 3's launches as the batch's
+  oracle (one on its fallbacks, if any);
+- phase 6b: the certified tier's oracle (kernel 3, exact fp32) bitwise its
+  plain version and the fixed-order oracle, its launches counted: B = 512
+  at k = 1000 over the 1M x 12 rows (every query past depth x W), and
+  1M x 64 with every query of B = 1024 and of B = 1 a fallback;
 - phase 7: the fused score + top-k kernel (kernel 3) at those shapes, both
   modes, k = 10 and 100 and B = 1, and on a tie-heavy catalog (each query's
   row copied to both sides of a catalog split or warp edge), bitwise equal
@@ -47,7 +52,8 @@ its plain torch version on the card, runs the reference-style CLI on a
   fixed-order oracle), at W = 4096 also B = 1 and k = 5000 (B = 1024
   and B = 1: no
   large-k warning, fallbacks and escalations per batch, its time beside
-  the default W = 128's full-oracle route); depth 5 with escalation to 8
+  the default W = 128's full-oracle route, kernel 3's large-k path held
+  bitwise to the fixed-order oracle); depth 5 with escalation to 8
   at W = 128 and depth 8 at W = 256 (depths 5, 6, 8 bitwise at both W);
   empty slots (W = 2048, depth 6 over W + 100 live columns, every slot
   selected) and dots of -0.0 and +0.0 (`signed_zero_inputs`), bitwise
@@ -1348,6 +1354,17 @@ def shapes_phase(cat: Catalog, feats, norms, queries, excl, fixed, cublas,
             check(torch.equal(i, fx[1][:m]) and torch.equal(s, fx[0][:m]),
                   f"W=4096 k={kk} {tag}: not the fixed-order oracle's")
             t_scan = wall_ms(lambda: r.retrieve(qq, k=kk, exclude_rows=ex), 3)
+            # the default W's route: kernel 3's large-k path on every query
+            fused_topk.launches = fused_topk_large.launches = 0
+            so, io = base.retrieve(qq, k=kk, exclude_rows=ex)
+            torch.cuda.synchronize()
+            n_orc = fused_topk_large.launches
+            check(n_orc > 0 and fused_topk.launches == 0,
+                  f"W=128 k={kk} {tag}: kernel 3's large-k path launched "
+                  f"{n_orc} times, the warp lists {fused_topk.launches}")
+            assert_oracle_bits(so, io, (fx[0][:m], fx[1][:m]),
+                               f"W=128 k={kk} {tag}: the oracle route vs "
+                               "the fixed-order oracle")
             t_orc = wall_ms(lambda: base.retrieve(qq, k=kk, exclude_rows=ex),
                             3)
             if tag == "B=1024":
@@ -1356,7 +1373,9 @@ def shapes_phase(cat: Catalog, feats, norms, queries, excl, fixed, cublas,
                         f"oracle, no large-k warning, {got} kernel-1 launches,"
                         f" fallbacks {fb}, escalations {es}, "
                         f"{t_scan:.3f} ms vs the "
-                        f"default W=128's full-oracle route {t_orc:.3f} ms")
+                        f"default W=128's full-oracle route {t_orc:.3f} ms "
+                        f"(bitwise the fixed-order oracle, {n_orc} kernel-3 "
+                        "large-k launches)")
         kernels["scan_v3_w4096_c5000"] = scan_entry(
             q2, cr.layout.ft, w, 2, kk, n, launches_k, reps=5)
         del fx, r, cr
@@ -2304,6 +2323,97 @@ def scan_v3_plain_chunked(q2, ft, *, w, depth, topc, ncols, chunk=1 << 18):
     return top_slots(*merge_bins(parts, depth), topc)
 
 
+def assert_oracle_bits(s, i, want, what: str) -> None:
+    """Indices and score bits (-0.0 and NaN told apart) equal `want`'s."""
+    ws, wi = want
+    check(torch.equal(i, wi), f"{what}: indices differ in "
+          f"{(i != wi).sum().item()} of {i.numel()}")
+    check(torch.equal(s.view(torch.int32), ws.view(torch.int32)),
+          f"{what}: score bits differ")
+
+
+def certified_oracle_phase(retriever, feats, f_dev, n_dev,
+                           launches: dict) -> None:
+    """Phase 6b: the certified tier's oracle, kernel 3 in exact fp32 mode,
+    held bitwise to kernel 3's plain version on the tier's own transposed
+    rows and to the fixed-order oracle, with kernel 3's launches counted
+    from the same run: at cell audio12-1m.b512-k1000's shape (1M x 12, B =
+    512 catalog rows excluding themselves, k = 1000 past depth x W, so
+    every query), and at 1M x 64 with every query a fallback under an
+    impossible certificate margin (B = 1024 and B = 1, k = 10)."""
+    t6b = time.perf_counter()
+    n, kk, bb = feats.shape[0], K_LARGE, 512
+    cr = retriever.certified
+    rows = np.random.default_rng(61).integers(0, n, size=bb)
+    q = torch.from_numpy(feats[rows]).to(DEV)
+    ex = torch.from_numpy(rows).to(DEV)
+    fb0, es0 = cr.fallbacks, cr.escalations
+    fused_topk.launches = fused_topk_large.launches = 0
+    s, i = retriever.retrieve(q, k=kk, exclude_rows=ex)
+    torch.cuda.synchronize()
+    chunk = _large_plan(bb, cr._oracle_ft.shape[1], DEV, fq=12, k=kk,
+                        exact=True, bf16=False)[0]
+    n_large = fused_topk_large.launches
+    check(n_large == -(-bb // chunk) and fused_topk.launches == 0
+          and cr.fallbacks == fb0 and cr.escalations == es0,
+          f"phase 6b: k={kk} B={bb} launched the large-k path {n_large} "
+          f"times (plan chunk {chunk}), the warp lists "
+          f"{fused_topk.launches}; fallbacks {cr.fallbacks - fb0}")
+    launches[f"fused_topk_certified_k{kk}"] = n_large
+    assert_oracle_bits(s, i, fused_topk_plain(
+        q, similarity.row_norms(q), cr._oracle_ft, cr._oracle_norms, ex, n,
+        k=kk, exact=True), f"phase 6b: k={kk} B={bb} vs kernel 3's plain "
+        "version")
+    assert_oracle_bits(s, i, similarity.exact_topk_chunked(
+        q, f_dev, n_dev, exclude_rows=ex, k=kk, fixed_order=True),
+        f"phase 6b: k={kk} B={bb} vs the fixed-order oracle")
+    t_k = wall_ms(lambda: retriever.retrieve(q, k=kk, exclude_rows=ex), 10)
+    line = [f"1M x 12 B={bb} k={kk}: {bb * kk} slots bitwise kernel 3's plain"
+            f" version and the fixed-order oracle, {n_large} large-k "
+            f"launches, no fallback, {t_k:.3f} ms a batch"]
+    del s, i
+
+    # 1M x 64, every query a fallback: the warp lists at F = 64
+    f64 = np.random.default_rng(64).random((n, 64), dtype=np.float32)
+    cr64 = CertifiedRetriever(f64, None, RetrievalConfig(certify_eps=10.0),
+                              DEV)
+    f64_dev = torch.from_numpy(f64).to(DEV)
+    n64_dev = cr64.layout.norms1d[:n]          # the tier's own norms
+    b64 = 1024
+    rows = np.random.default_rng(62).integers(0, n, size=b64)
+    q = torch.from_numpy(f64[rows]).to(DEV)
+    q += 0.01 * torch.randn(q.shape, generator=torch.Generator(device=DEV)
+                            .manual_seed(62), device=DEV)
+    ex = torch.from_numpy(rows).to(DEV)
+    plain = fused_topk_plain(q, similarity.row_norms(q), cr64._oracle_ft,
+                             cr64._oracle_norms, ex, n, k=10, exact=True)
+    fixed64 = similarity.exact_topk_chunked(q, f64_dev, n64_dev,
+                                            exclude_rows=ex, k=10,
+                                            fixed_order=True)
+    for m in (b64, 1):
+        fb0 = cr64.fallbacks
+        fused_topk.launches = fused_topk_large.launches = 0
+        s, i = cr64(q[:m], 10, ex[:m])
+        torch.cuda.synchronize()
+        fb = cr64.fallbacks - fb0
+        check(fb == m and fused_topk.launches == 1
+              and fused_topk_large.launches == 0,
+              f"phase 6b: F=64 B={m}: {fb} fallbacks, kernel 3 "
+              f"{fused_topk.launches} + {fused_topk_large.launches} launches")
+        launches[f"fused_topk_certified_f64_b{m}"] = fused_topk.launches
+        assert_oracle_bits(s, i, (plain[0][:m], plain[1][:m]),
+                           f"phase 6b: F=64 B={m} vs kernel 3's plain version")
+        assert_oracle_bits(s, i, (fixed64[0][:m], fixed64[1][:m]),
+                           f"phase 6b: F=64 B={m} vs the fixed-order oracle")
+        t_m = wall_ms(lambda: cr64(q[:m], 10, ex[:m]), 10)
+        line.append(f"1M x 64 B={m} k=10, every query a fallback: bitwise "
+                    f"both, 1 warp-list launch, {t_m:.3f} ms a batch")
+    del cr64, f64_dev, n64_dev, plain, fixed64
+    torch.cuda.empty_cache()
+    print("phase 6b certified oracle on kernel 3: " + "; ".join(line)
+          + f"; {time.perf_counter() - t6b:.1f} s")
+
+
 def sharded_phase(kernels: dict, launches: dict, work: Path) -> None:
     """Phase 20: the row-sharded catalog at BASELINE config 4's 10M x 12 on
     one card: a 4-shard catalog mesh over the one device (the Retriever's
@@ -2340,16 +2450,25 @@ def sharded_phase(kernels: dict, launches: dict, work: Path) -> None:
     ref_s, ref_i = single(queries, k, excl)
     single_fb, single_esc = single.fallbacks, single.escalations
 
+    shards = list(sc._shards.values())
+    fb_before = [sh.fallbacks for sh in shards]
     query_prologue.launches = split_bf16x2.launches = 0
-    scan_v3.launches = fused_topk.launches = 0
+    scan_v3.launches = fused_topk.launches = fused_topk_large.launches = 0
     s, i = retriever.retrieve(queries, k=k, exclude_rows=excl)
     torch.cuda.synchronize()
     n_pro, n_scan = query_prologue.launches, scan_v3.launches
+    # kernel 3 runs only as a shard's oracle: one launch (k = 10: the warp
+    # lists) for each shard with a fallback
+    shard_fb = [sh.fallbacks - f0 for sh, f0 in zip(shards, fb_before)]
+    n_k3 = fused_topk.launches + fused_topk_large.launches
     # one prologue for the one device, shared by its SHARDS shards
     check(n_pro == 1 and split_bf16x2.launches == 0 and n_scan >= SHARDS
-          and fused_topk.launches == 0,
+          and n_k3 == sum(f > 0 for f in shard_fb)
+          and fused_topk_large.launches == 0,
           f"phase 20: sharded batch launches prologue {n_pro} (1 per device "
-          f"expected), split {split_bf16x2.launches}, scan {n_scan}")
+          f"expected), split {split_bf16x2.launches}, scan {n_scan}, kernel "
+          f"3 {fused_topk.launches} + {fused_topk_large.launches} for the "
+          f"shards' fallbacks {shard_fb}")
     launches["query_prologue_sharded"] = n_pro
     launches["scan_v3_sharded"] = n_scan
     fb, esc = sc.fallbacks, sc.escalations
@@ -3244,7 +3363,7 @@ def main() -> None:
     excl = torch.from_numpy(rows).to(DEV)
 
     split_bf16x2.launches = query_prologue.launches = 0
-    scan_v3.launches = 0
+    scan_v3.launches = fused_topk.launches = fused_topk_large.launches = 0
     s, i = retriever.retrieve(queries, k=k, exclude_rows=excl)
     torch.cuda.synchronize()
     launches = {"query_prologue": query_prologue.launches,
@@ -3256,6 +3375,14 @@ def main() -> None:
           f" times and the bare split {split_bf16x2.launches}")
     fallbacks, escalations = cr.fallbacks, cr.escalations
     launches["scan_v3_rescan"] = scan_v3.launches - 1   # after the first scan
+    # kernel 3 is the batch's oracle: one warp-list launch (k = 10) on the
+    # fallbacks, where there are any
+    launches["fused_topk_certified"] = (fused_topk.launches
+                                        + fused_topk_large.launches)
+    check(fused_topk.launches == int(fallbacks > 0)
+          and fused_topk_large.launches == 0,
+          f"a certified batch with {fallbacks} fallbacks launched kernel 3 "
+          f"{fused_topk.launches} + {fused_topk_large.launches} times")
 
     f_dev = torch.from_numpy(feats).to(DEV)
     n_dev = torch.from_numpy(norms).to(DEV)
@@ -3307,6 +3434,8 @@ def main() -> None:
           f"alternating pairs): B=1 "
           f"{ab_b1[0]:.4f} vs {ab_b1[1]:.4f} ms, batch {ab_batch[0]:.4f} vs "
           f"{ab_batch[1]:.4f} ms")
+
+    certified_oracle_phase(retriever, feats, f_dev, n_dev, launches)
 
     # ---- kernels at the main path's shapes: vs plain, and timed
     qn = similarity.row_norms(queries)

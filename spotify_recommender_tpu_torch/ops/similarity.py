@@ -14,12 +14,12 @@ paths):
 - self-exclusion by masking the query row to -inf before top-k
   (reference skips the query index during heap fill, Recommender.cu:296).
 
-This module is the *oracle* the certified tier is held against, and the
-fallback that serves the queries whose certificate fails.  The certified
-tier scores both its rerank and its fallback with `fixed_order_dots` (the
-`fixed_order=True` oracle below), so a certified answer is bitwise what its
-own oracle returns; the "oracle" backend and the default here keep the
-matrix product.
+This module is the *oracle* the certified tier is held against.  The
+certified tier's rerank scores with `fixed_order_dots` (the
+`fixed_order=True` oracle below), and its fallback, kernel 3 in exact
+mode, sums in the same order with the same roundings, so a certified
+answer is bitwise what this oracle returns; the "oracle" backend and the
+default here keep the matrix product.
 """
 
 from __future__ import annotations

@@ -4,10 +4,10 @@ Retriever around it.
 
 In every case but the near-tie one (see there) the port's indices equal
 `exact_topk` of the JAX package.  Scores: the port's rerank and its
-certified oracle both sum in fixed feature order
-(`similarity.fixed_order_dots`), the JAX oracle in XLA's, so scores are
-compared within 1e-6 (a few ulp at magnitude <= 1) unless the case pins
-them.
+certified oracle (kernel 3, here its plain version) both sum in fixed
+feature order (`similarity.fixed_order_dots`), the JAX oracle in XLA's,
+so scores are compared within 1e-6 (a few ulp at magnitude <= 1) unless
+the case pins them.
 """
 
 import logging
@@ -25,6 +25,7 @@ from spotify_recommender_tpu.ops.similarity import exact_topk
 from spotify_recommender_tpu_torch.core.config import MeshConfig, RetrievalConfig
 from spotify_recommender_tpu_torch.core.mesh import make_mesh
 from spotify_recommender_tpu_torch.data.catalog import Catalog
+from spotify_recommender_tpu_torch.ops import fused_topk as tft
 from spotify_recommender_tpu_torch.ops import similarity as tsim
 from spotify_recommender_tpu_torch.ops.cuda.scan_v3 import scan_v3
 from spotify_recommender_tpu_torch.ops.cuda.split import split_bf16x2
@@ -323,6 +324,152 @@ class TestTieSemantics:
         _, _, i = certified(feats, norms, feats[100][None, :], 3)
         assert i[0].tolist() == oracle(feats[100][None, :], feats, norms, 3)[1][0].tolist()
         assert i[0, 0] == 100 and i[0].tolist().index(500) < i[0].tolist().index(2500)
+
+
+def fixed_order_oracles(q, feats, norms, k, excl=None):
+    """The fixed-order fp32 oracle both ways, as torch tensors: the k
+    rounds of argmax, and the catalog in ascending chunks merged."""
+    args = (torch.from_numpy(q), torch.from_numpy(feats),
+            torch.from_numpy(norms))
+    ex = None if excl is None else torch.from_numpy(np.asarray(excl))
+    return (tsim.exact_topk_iterative(*args, exclude_rows=ex, k=k,
+                                      fixed_order=True),
+            tsim.exact_topk_chunked(*args, exclude_rows=ex, k=k, chunk=1024,
+                                    fixed_order=True))
+
+
+def assert_bitwise_fixed_order(s, i, q, feats, norms, k, excl=None):
+    """Indices and score bits identical to both fixed-order oracles."""
+    for rs, ri in fixed_order_oracles(q, feats, norms, k, excl):
+        np.testing.assert_array_equal(i, ri.numpy())
+        np.testing.assert_array_equal(s.view(np.int32),
+                                      rs.numpy().view(np.int32))
+
+
+def oracle_case(data, f, seed=20, n=3000, b=6):
+    """Catalog rows and queries: uniform rows and queries near them, or
+    "ties": 40 rows copies of row 5 (the first query is row 5 itself),
+    three zero-norm rows and a zero-norm query."""
+    rng = np.random.default_rng(seed + f)
+    feats = rng.random((n, f), dtype=np.float32)
+    rows = rng.integers(0, n, b)
+    q = feats[rows] + 0.01 * rng.standard_normal((b, f)).astype(np.float32)
+    if data == "ties":
+        feats[rng.choice(np.arange(6, n), 40, replace=False)] = feats[5]
+        feats[[0, 17, n - 1]] = 0.0
+        rows[0] = 5
+        q[0] = feats[5]
+        q[1] = 0.0
+    norms = np.linalg.norm(feats, axis=1).astype(np.float32)
+    return feats, norms, q, rows
+
+
+@pytest.fixture
+def kernel3_calls(monkeypatch):
+    """The queries of each kernel-3 call the certified tier makes (its
+    oracle), in order."""
+    calls = []
+    real = tft.fused_topk
+
+    def counted(queries, *args, **kw):
+        calls.append(queries.shape[0])
+        return real(queries, *args, **kw)
+
+    monkeypatch.setattr(tft, "fused_topk", counted)
+    return calls
+
+
+class TestOracleOnKernel3:
+    """The oracle (k > depth x W, and the fallbacks) answers on kernel 3:
+    bitwise the fixed-order oracle's, one call a batch that needs it, on
+    those queries alone.  On the CPU kernel 3 is its plain version,
+    `fused_topk_plain`."""
+
+    @pytest.mark.parametrize("data", ["uniform", "ties"])
+    @pytest.mark.parametrize("excl", [False, True])
+    @pytest.mark.parametrize("f", [12, 64])
+    @pytest.mark.parametrize("k", [257, 1000])     # depth 2 x W 128 = 256
+    def test_k_beyond_the_scan_bitwise_fixed_order(self, k, f, excl, data,
+                                                   kernel3_calls):
+        feats, norms, q, rows = oracle_case(data, f)
+        ex = rows if excl else None
+        cr, s, i = certified(feats, norms, q, k, excl=ex)
+        assert_bitwise_fixed_order(s, i, q, feats, norms, k, ex)
+        assert kernel3_calls == [len(q)]
+        assert cr.fallbacks == cr.escalations == 0
+        if excl:
+            assert not np.any(i == rows[:, None])
+        if data == "ties":
+            # row 5's copies first, the lowest index first
+            copies = [r for r in np.flatnonzero((feats == feats[5]).all(1))
+                      if not (excl and r == 5)]
+            assert i[0, :len(copies)].tolist() == copies
+            assert (s[1] == 0.0).all()       # the zero-norm query
+
+    @pytest.mark.parametrize("case", [
+        "collision", "depth2", "escalation_short", "margin_f12",
+        "margin_f64_excl", "margin_ties", "none"])
+    def test_fallbacks_bitwise_fixed_order(self, case, kernel3_calls):
+        """Queries whose certificate fails go to kernel 3: a top-k in one
+        bin (the collision fixtures), or every query of a batch under an
+        impossible certificate margin; one call on the `.fallbacks`
+        queries, and none where nothing falls back."""
+        config, excl = None, None
+        if case in ("collision", "depth2", "escalation_short"):
+            seed, n_hot, gap, config = {
+                "collision": (6, 6, 1e-4, None),
+                "depth2": (11, 3, 1e-4,
+                           RetrievalConfig(scan_depth=2, scan_escalate=0)),
+                "escalation_short": (15, 6, 5e-4,
+                                     RetrievalConfig(scan_depth=2,
+                                                     scan_escalate=3)),
+            }[case]
+            feats, norms, q, _ = _one_bin_catalog(seed, n_hot, gap)
+            # the hot query beside catalog rows that certify
+            q = np.concatenate([feats[[100, 2000, 5000]], q])
+            k = n_hot
+        else:
+            f = 64 if case == "margin_f64_excl" else 12
+            feats, norms, q, rows = oracle_case(
+                "ties" if case == "margin_ties" else "uniform", f)
+            excl = rows if case in ("margin_f64_excl", "margin_ties") else None
+            if case != "none":
+                config = RetrievalConfig(certify_eps=10.0)
+            k = 10
+        cr, s, i = certified(feats, norms, q, k, config, excl=excl)
+        assert_bitwise_fixed_order(s, i, q, feats, norms, k, excl)
+        if case == "none":
+            assert cr.fallbacks == 0
+        elif case.startswith("margin"):
+            assert cr.fallbacks == len(q)
+        else:
+            assert cr.fallbacks == 1
+        assert kernel3_calls == ([cr.fallbacks] if cr.fallbacks else [])
+
+    @pytest.mark.parametrize("n,k,margin", [
+        (300, 300, False),      # k > depth x W, k = N: the start's oracle
+        (300, 320, False),      # k > N
+        (200, 200, True),       # every query a fallback at k = N
+    ])
+    def test_k_at_the_row_count_leaves_unfilled_slots_empty(self, n, k,
+                                                            margin,
+                                                            kernel3_calls):
+        """Where k reaches the row count some slot has no row: kernel 3
+        answers there too, and the slots no row fills are (-inf, -1), as
+        the chunked fixed-order oracle's; every filled slot is its row,
+        bit for bit."""
+        feats, norms, q, rows = oracle_case("uniform", 12, n=n, b=4)
+        config = RetrievalConfig(certify_eps=10.0) if margin else None
+        cr, s, i = certified(feats, norms, q, k, config, excl=rows)
+        _, (rs, ri) = fixed_order_oracles(q, feats, norms, k, rows)
+        np.testing.assert_array_equal(i, ri.numpy())
+        np.testing.assert_array_equal(s.view(np.int32),
+                                      rs.numpy().view(np.int32))
+        empty = i == -1
+        assert (empty.sum(axis=1) == k - (n - 1)).all()   # n - 1 rows each
+        assert np.isneginf(s[empty]).all() and np.isfinite(s[~empty]).all()
+        assert kernel3_calls == [len(q)]
+        assert cr.fallbacks == (len(q) if margin else 0)
 
 
 class TestPlaneLayouts:

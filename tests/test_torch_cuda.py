@@ -305,6 +305,55 @@ def test_certified_wide_and_v2_match_oracle_on_card(cuda, config):
                               cr.layout.norms1d, rows)
 
 
+@pytest.mark.parametrize("f,b,k,margin,n", [
+    (12, 64, 257, False, 30011), (12, 200, 1000, False, 30011),
+    (64, 64, 1000, False, 30011), (12, 64, 10, True, 30011),
+    (64, 200, 10, True, 30011), (12, 8, 320, False, 300)])
+def test_certified_oracle_on_kernel3_bitwise_fixed_order(cuda, f, b, k,
+                                                         margin, n):
+    """The certified tier's oracle on kernel 3 (k > depth x W, or every
+    query a fallback under an impossible margin): one call of kernel 3 on
+    the batch, its indices and score bits those of the fixed-order oracles,
+    over rows with copies, zero-norm rows and a zero-norm query; the
+    transposed rows (30,011 columns, padded to 30,012) take 16-byte
+    copies.  At k past the row count the slots no row fills are (-inf,
+    -1), as the chunked oracle's."""
+    rng = np.random.default_rng(f + k)
+    feats = rng.random((n, f), dtype=np.float32)
+    feats[rng.choice(np.arange(6, n), 40, replace=False)] = feats[5]
+    feats[[0, 17, n - 1]] = 0.0
+    rows = rng.integers(0, n, b)
+    rows[0] = 5
+    q = feats[rows] + 0.01 * rng.standard_normal((b, f)).astype(np.float32)
+    q[0], q[1] = feats[5], 0.0
+    config = RetrievalConfig(certify_eps=10.0) if margin else None
+    cr = CertifiedRetriever(feats, None, config, cuda)
+    assert copy_width(cr._oracle_ft) == 16
+    before = {fn: fn.launches for fn in (fused_topk, fused_topk_large)}
+    s, i = cr(q, k, exclude_rows=rows)
+    torch.cuda.synchronize()
+    path = fused_topk if fused_route(k, b) == "lists" else fused_topk_large
+    other = fused_topk_large if path is fused_topk else fused_topk
+    assert path.launches > before[path]
+    assert other.launches == before[other]
+    if path is fused_topk:
+        assert path.launches == before[path] + 1
+    assert cr.fallbacks == (b if margin else 0)
+    args = (torch.from_numpy(q).to(cuda), torch.from_numpy(feats).to(cuda),
+            cr.layout.norms1d[:n])
+    r = torch.from_numpy(rows).to(cuda)
+    # the k rounds of argmax put row 0 in the slots no row fills
+    fns = ((similarity.exact_topk_chunked,) if k >= n else
+           (similarity.exact_topk_chunked, similarity.exact_topk_iterative))
+    for fn in fns:
+        fs, fi = fn(*args, exclude_rows=r, k=k, fixed_order=True)
+        assert torch.equal(i, fi)
+        assert torch.equal(s.view(torch.int32), fs.view(torch.int32))
+    if k >= n:
+        assert ((i == -1).sum(dim=1) == k - (n - 1)).all()
+        assert torch.isneginf(s[i == -1]).all()
+
+
 def _split_scan_inputs(cuda, b, w, seed):
     """157 w-column groups at B = 1024, 2213 below (each slice then holds
     several groups; the last slice is ragged at every B), the w columns
